@@ -4,19 +4,34 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run if it fails:
-  1. build every CUDA kernel of the tracking path from the repository's
-     sources (today one: K1, the Hamming distance matrix);
-  2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (exact equality for integer outputs);
-  3. time each kernel, its plain version and one library call computing the
-     same function (CUDA events around CUDA-graph replays, so that host
-     time is not counted), and reckon its bound;
-  4. drive the main path at full width — 60 frames of the synthetic room at
-     640x480 through `Tracker` (1000 features, 1024 keypoints, 4096 local
-     points) — with the kernel launch counts set to 0 just before, check
-     the result against ground truth, and read the counts just after;
-  5. print the `kernels` line, the card's name and power limit, and last
+  1. build every CUDA source of the port (`csrc/hamming.cu`, K1, and
+     `csrc/popc_bench.cu`, the popc-rate microbenchmark), one nvcc each,
+     started together;
+  2. hold K1 against its plain PyTorch version on the card at every shape
+     that phases 4-6 give it, taken from their configurations: tracking and
+     duplicate fusion (local points x keypoints) and triangulation
+     (keypoints x keypoints) (exact equality);
+  3. measure the card's popc issue rate, then time K1, its plain version and
+     one library call computing the same function (CUDA events around
+     CUDA-graph replays, so that host time is not counted), and reckon K1's
+     bound from the higher of the measured rate and the documented one;
+  4. drive the main path at full width: 60 frames of the synthetic room at
+     640x480 through `Tracker` with its defaults (1000 features, 1024
+     keypoints, 4096 local points, the keyframe back-end after every
+     keyframe), check the result against ground truth and that a back-end
+     pass ran after every keyframe from the second on, and time extraction,
+     tracking and each stage of the back-end pass;
+  5. the back-end pass at full width on a real map: `eval_map.npz` (2176
+     keypoints, 288 keyframe slots, 32768 points, window 16+8, 4096 local
+     points) through `process_new_keyframe` on the card and through the
+     port on the CPU; integer outputs equal, poses and points within the
+     parity tests' tolerances;
+  6. capacity pressure at a smaller depth: 120 frames at 320x240 into 24
+     keyframe slots, so that map compaction must fire;
+  7. print the `kernels` line, the card's name and power limit, and last
      `{"ok": true, "device": ...}`.
+The kernel launch counts are set to 0 just before each of phases 4-6 and
+read just after; the `kernels` line carries phase 4's.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. It imports nothing of JAX.
@@ -24,26 +39,52 @@ exits non-zero and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# H100 SXM published peaks (HBM3 bandwidth, SM count, boost clock), and the
-# popc issue rate assumed for compute capability 9.0 (csrc/hamming.cu).
+# H100 SXM published HBM3 bandwidth.
 HBM_BYTES_PER_S = 3.35e12
-POPC_PER_S = 16 * 132 * 1.98e9
+# Documented popc throughput of compute capability 9.0, per clock per SM.
+# K1's bound uses the higher of this rate (at the card's maximum SM clock)
+# and the one phase 3 measures, so that the bound is never flattered.
+POPC_PER_CLK_SM = 16
 
 N_FRAMES = 60
 ATE_GATE_M = 0.05
 MIN_INLIERS = 30
+# K1 shapes beyond the path's: an odd one and a self-distance check
+K1_EXTRA_SHAPES = [(200, 333), (128, 128)]
+
+EVAL_MAP = os.path.join("sgslam_tpu", "assets", "eval_map.npz")
+# card vs CPU on the eval map's 16+8 window: the tolerances of
+# tests/test_torch_local_ba.py (the BA rounds its point-block sums to bf16,
+# so f32 summation order shows at the millimetre level)
+TOL_WIN_POSE_T = 3e-3
+TOL_WIN_POSE_Q = 5e-4
+TOL_WIN_POINT_MEDIAN = 0.01
+TOL_WIN_POINT_P95 = 0.1
+
+LIVE_FRAMES = 120
+LIVE_ATE_GATE_M = 0.08
 
 
 def _fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     return 1
+
+
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader",
+         "--id=0"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
 
 
 def _event_ms(fn, runs: int, warmup: int = 5) -> float:
@@ -95,25 +136,58 @@ def _unpack_bits(x):
     return bits.reshape(x.shape[0], 256).to(torch.float32)
 
 
-def phase_hamming(dev, rng):
-    """Build, check and time K1. Returns its entry of the kernels line."""
+def phase_build():
+    """Build both CUDA sources at once (nvcc runs outside the GIL); load
+    K1 and return the ctypes handle of the popc microbenchmark."""
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+
+    t0 = time.perf_counter()
+    sources = [hc.CSRC / "hamming.cu", hc.CSRC / "popc_bench.cu"]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(lambda s: hc.build_library(True, s), sources))
+    hc.hamming_kernel.load()
+    popc = ctypes.CDLL(str(libs[1]))
+    popc.sgslam_popc_bench.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_void_p]
+    popc.sgslam_popc_bench.restype = ctypes.c_int
+    for fn in (popc.sgslam_popc_bench_chains, popc.sgslam_popc_bench_threads):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    print(f"[build] {', '.join(s.name for s in sources)} built and loaded "
+          f"in {time.perf_counter() - t0:.2f} s")
+    return popc
+
+
+def _descs(rng, dev, n):
+    import torch
+
+    words = rng.integers(0, 2 ** 32, size=(n, 8), dtype=np.uint64)
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
+
+
+def k1_shapes(cfgs):
+    """K1's shapes on the paths of `cfgs`: local points x keypoints
+    (tracking, duplicate fusion) and keypoints x keypoints
+    (triangulation)."""
+    shapes = []
+    for cfg in cfgs:
+        k = cfg.orb.max_keypoints
+        for shape in ((cfg.capacity.local_points, k), (k, k)):
+            if shape not in shapes:
+                shapes.append(shape)
+    return shapes
+
+
+def phase_k1_parity(dev, rng, shapes) -> int:
+    """K1 against its plain version at every shape of the path."""
     import torch
 
     from sgslam_tpu_torch.ops import hamming_cuda as hc
 
-    t0 = time.perf_counter()
-    hc.hamming_kernel.load(verbose=True)
-    print(f"[build] K1 hamming.cu built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s")
-
-    def descs(n):
-        words = rng.integers(0, 2 ** 32, size=(n, 8), dtype=np.uint64)
-        return torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
-
     max_err = 0
-    for n, m in [(200, 333), (128, 128), (4096, 1024)]:
-        a = descs(n)
-        b = a if n == m == 128 else descs(m)
+    for n, m in K1_EXTRA_SHAPES + shapes:
+        a = _descs(rng, dev, n)
+        b = a if n == m == 128 else _descs(rng, dev, m)
         out = hc.hamming_kernel(a, b)
         torch.cuda.synchronize()
         ref = hc.hamming_matrix_reference(a, b)
@@ -125,10 +199,77 @@ def phase_hamming(dev, rng):
         if n == m == 128 and bool((out.diagonal() != 0).any()):
             raise AssertionError("K1: nonzero self-distance")
         print(f"[parity] K1 {n}x{m}: exact (max |err| {err})")
+    return max_err
 
-    # timing at the main path's shape: 4096 local points x 1024 keypoints
+
+def _popc_expected(tid, iters, chains):
+    """The microbenchmark's output for thread `tid`, on the host."""
+    total = 0
+    for k in range(chains):
+        x = (tid * 2654435761 + k * 40503) & 0xFFFFFFFF
+        for _ in range(iters):
+            total += bin(x).count("1")
+            x = (x + 0x9E3779B9) & 0xFFFFFFFF
+    return total & 0xFFFFFFFF
+
+
+def phase_popc_rate(dev, popc) -> float:
+    """The card's popc rate (popc per second) for K1's bound: the higher of
+    the microbenchmark's (csrc/popc_bench.cu) and the documented one."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    threads = popc.sgslam_popc_bench_threads()
+    chains = popc.sgslam_popc_bench_chains()
+    blocks, iters = 8 * sms, 4096             # 2048 threads on every SM
+    out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
+
+    def launch(it=iters):
+        err = popc.sgslam_popc_bench(
+            out.data_ptr(), blocks, it,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"popc benchmark launch failed: CUDA error "
+                               f"{err}")
+
+    launch(64)
+    got = out[:4].cpu().numpy().view(np.uint32)
+    want = [_popc_expected(t, 64, chains) for t in range(4)]
+    if list(got) != want:
+        raise AssertionError(f"popc benchmark computed {got}, not {want}")
+    ms = _event_ms(launch, runs=20)
+    clock_mhz = float(_smi("clocks.sm").split()[0])
+    max_mhz = float(_smi("clocks.max.sm").split()[0])
+    rate = blocks * threads * iters * chains / (ms * 1e-3)
+    documented = POPC_PER_CLK_SM * sms * max_mhz * 1e6
+    print(f"[popc] {blocks} blocks x {threads} threads x {iters} x {chains} "
+          f"popc in {ms:.4f} ms: {rate:.4e} popc/s = "
+          f"{rate / (sms * max_mhz * 1e6):.2f} per clock per SM at the "
+          f"maximum SM clock {max_mhz:.0f} MHz ({sms} SMs; SM clock read "
+          f"after the run {clock_mhz:.0f} MHz); documented "
+          f"{POPC_PER_CLK_SM}/clk/SM: {documented:.4e} popc/s; the bound "
+          f"uses {max(rate, documented):.4e} popc/s")
+    return max(rate, documented)
+
+
+def phase_k1_time(dev, rng, popc_rate: float, max_err: int, shapes):
+    """Time K1 at the paths' shapes; its entry of the kernels line."""
+    import torch
+
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+
+    for n, m in shapes:
+        if (n, m) == (4096, 1024):
+            continue
+        a, b = _descs(rng, dev, n), _descs(rng, dev, m)
+        ms = _graph_ms(lambda: hc.hamming_kernel(a, b), calls=20)
+        bound = max(((n + m) * 32 + n * m * 4) / HBM_BYTES_PER_S,
+                    n * m * 8 / popc_rate) * 1e3
+        print(f"[time] K1 {n}x{m}: kernel_ms={ms:.5f} bound_ms={bound:.5f}")
+
+    # the tracking shape: 4096 local points x 1024 keypoints
     n, m = 4096, 1024
-    a, b = descs(n), descs(m)
+    a, b = _descs(rng, dev, n), _descs(rng, dev, m)
     call_ms = _event_ms(lambda: hc.hamming_kernel(a, b), runs=100)
     kernel_ms = _graph_ms(lambda: hc.hamming_kernel(a, b), calls=50)
     plain_ms = _graph_ms(lambda: hc.hamming_matrix_reference(a, b), calls=5)
@@ -138,16 +279,15 @@ def phase_hamming(dev, rng):
                        hc.hamming_matrix_reference(a, b)):
         raise AssertionError("cdist yardstick disagrees with K1's function")
     library_ms = _graph_ms(lambda: torch.cdist(ba, bb, p=0), calls=5)
-    bytes_moved = (n + m) * 8 * 4 + n * m * 4
-    popc = n * m * 8
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = popc / POPC_PER_S * 1e3
+    bytes_ms = ((n + m) * 8 * 4 + n * m * 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * m * 8 / popc_rate * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"[time] K1 {n}x{m}: kernel_ms={kernel_ms:.5f} "
-          f"bound_ms={bound_ms:.5f} (bytes {bytes_ms:.5f}, popc {ops_ms:.5f}) "
-          f"plain_ms={plain_ms:.5f} library_ms(cdist p=0)={library_ms:.5f} "
-          f"(device times from CUDA-graph replay); one eager wrapper call "
-          f"between events: {call_ms:.5f} ms")
+          f"bound_ms={bound_ms:.5f} (bytes {bytes_ms:.5f}, popc "
+          f"{ops_ms:.5f}) plain_ms="
+          f"{plain_ms:.5f} library_ms(cdist p=0)={library_ms:.5f} (device "
+          f"times from CUDA-graph replay); one eager wrapper call between "
+          f"events: {call_ms:.5f} ms")
     return {"name": "hamming_matrix", "route": "cuda",
             "source": "sgslam_tpu_torch/csrc/hamming.cu",
             "replaces": "sgslam_tpu/ops/pallas_hamming.py:34",
@@ -157,66 +297,245 @@ def phase_hamming(dev, rng):
             "library_ms": library_ms}
 
 
-def phase_main_path(dev, kernels):
-    """Track 60 full-width frames through the port's entry points."""
+class StageTimer:
+    """`Tracker.on_backend_stage` / `process_new_keyframe(on_stage=)`:
+    a CUDA event at the start of each back-end pass and after each stage."""
+
+    def __init__(self):
+        self.passes = []
+
+    def __call__(self, name):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if name == "begin":
+            self.passes.append([])
+        self.passes[-1].append((name, ev))
+
+    def split(self):
+        """(median ms of the whole pass, {stage: median ms}) over passes."""
+        import torch
+
+        torch.cuda.synchronize()
+        total, stages = [], {}
+        for events in self.passes:
+            total.append(events[0][1].elapsed_time(events[-1][1]))
+            for (_, a), (name, b) in zip(events, events[1:]):
+                stages.setdefault(name, []).append(a.elapsed_time(b))
+        return (float(np.median(total)),
+                {k: float(np.median(v)) for k, v in stages.items()})
+
+
+def _split_text(stages):
+    return ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+
+
+def _ate(tracker, gt_wc):
+    import torch
+
+    from sgslam_tpu_torch.eval import ate
+    from sgslam_tpu_torch.geometry import se3
+
+    est_cw = torch.as_tensor(tracker.poses_cw())
+    if est_cw.shape != (len(gt_wc), 7) or not bool(
+            torch.isfinite(est_cw).all()):
+        raise AssertionError(f"trajectory {tuple(est_cw.shape)} not finite")
+    return ate.ate_rmse(se3.se3_inverse(est_cw).numpy(), gt_wc)[0]
+
+
+def phase_main_path(dev, kernels, cfg=None, n_frames=N_FRAMES):
+    """Track full-width frames through the port's default `Tracker`, the
+    keyframe back-end on."""
     import torch
 
     from sgslam_tpu_torch import config
-    from sgslam_tpu_torch.eval import ate
-    from sgslam_tpu_torch.geometry import se3
     from sgslam_tpu_torch.io import synthetic
     from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.slam import tracking
 
-    cfg = config.synthetic_config(640, 480)
-    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=N_FRAMES,
+    cfg = cfg or config.synthetic_config(640, 480)
+    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames,
                                       device=dev)
-    frames = [seq.frame(i) for i in range(N_FRAMES)]
+    frames = [seq.frame(i) for i in range(n_frames)]
     torch.cuda.synchronize()
-    tr = tracking.Tracker(cfg, local_ba_every=10 ** 9, device=dev)
+    tr = tracking.Tracker(cfg, device=dev)
+    timer = StageTimer()
+    tr.on_backend_stage = timer
 
     hc.hamming_kernel.launches = 0
-    extract_ms, track_ms = [], []
+    extract_ms, track_ms, kf_track_ms = [], [], []
     t_run = time.perf_counter()
-    for gray, depth in frames:
+    for i, (gray, depth) in enumerate(frames):
         t0 = time.perf_counter()
         feats = tracking.extract_frame(cfg, gray, depth, device=dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        n_pass = len(timer.passes)
         tr.process(None, None, feats=feats)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         extract_ms.append((t1 - t0) * 1e3)
-        track_ms.append((t2 - t1) * 1e3)
+        if i > 0:
+            (kf_track_ms if len(timer.passes) > n_pass
+             else track_ms).append((t2 - t1) * 1e3)
     run_s = time.perf_counter() - t_run
     launches = hc.hamming_kernel.launches
     kernels["hamming_matrix"]["launches"] = launches
 
     tracked = len(tr.n_inliers_hist)
-    est_cw = torch.as_tensor(tr.poses_cw())
-    if est_cw.shape != (N_FRAMES, 7) or not bool(torch.isfinite(est_cw).all()):
-        raise AssertionError(f"trajectory {tuple(est_cw.shape)} not finite")
-    est_wc = se3.se3_inverse(est_cw).numpy()
-    rmse = ate.ate_rmse(est_wc, seq.poses.cpu().numpy())[0]
+    passes = len(timer.passes)
+    rmse = _ate(tr, seq.poses.cpu().numpy())
     min_inl = min(tr.n_inliers_hist)
-    print(f"[main] {N_FRAMES} frames {cfg.camera.width}x{cfg.camera.height} "
-          f"in {run_s:.2f} s: state "
-          f"{tr.state}, {tr.n_kf} keyframes, "
-          f"{int(tr.map.next_pt)} map points, {tracked} tracked frames, "
-          f"min inliers {min_inl}, ATE {rmse:.5f} m, "
-          f"K1 launches {launches} ({launches / max(tracked, 1):.2f}/frame)")
+    pass_ms, stages = timer.split()
+    print(f"[main] {n_frames} frames {cfg.camera.width}x{cfg.camera.height} "
+          f"in {run_s:.2f} s: state {tr.state}, {tr.n_kf} keyframes, "
+          f"{passes} back-end passes, {tr.compactions} compactions, "
+          f"{int(tr.map.pt_valid.sum())} live map points, {tracked} tracked "
+          f"frames, min inliers {min_inl}, ATE {rmse:.5f} m, K1 launches "
+          f"{launches} ({launches / max(tracked, 1):.2f}/frame)")
     print(f"[main] per frame (median, synchronized): extract_frame "
           f"{np.median(extract_ms):.3f} ms, track (Tracker.process on "
-          f"extracted features) {np.median(track_ms[1:]):.3f} ms")
+          f"extracted features, no keyframe) {np.median(track_ms):.3f} ms, "
+          f"Tracker.process with a back-end pass "
+          f"{np.median(kf_track_ms) if kf_track_ms else float('nan'):.3f} ms")
+    print(f"[main] back-end pass (median over {passes}, CUDA events): "
+          f"{pass_ms:.3f} ms = {_split_text(stages)}")
     if tr.state != "OK":
         raise AssertionError(f"tracker state {tr.state}")
     if min_inl < MIN_INLIERS:
         raise AssertionError(f"inliers collapsed to {min_inl}")
     if not rmse < ATE_GATE_M:
         raise AssertionError(f"ATE {rmse:.4f} m >= {ATE_GATE_M} m")
-    if launches < 2 * tracked:
-        raise AssertionError(f"K1 launched {launches} times for {tracked} "
-                             "tracked frames (expected >= 2 per frame)")
+    if passes != tr.n_kf - 1 or passes < 1:
+        raise AssertionError(f"{passes} back-end passes for {tr.n_kf} "
+                             "keyframes (expected one per keyframe after "
+                             "the first)")
+    if launches < 2 * tracked + 2 * passes:
+        raise AssertionError(
+            f"K1 launched {launches} times for {tracked} tracked frames and "
+            f"{passes} back-end passes (expected >= 2 each)")
+
+
+def eval_config():
+    """tools/build_eval_map.py's configuration."""
+    from sgslam_tpu_torch import config
+
+    return config.synthetic_config(
+        width=640, height=480,
+        orb=config.OrbConfig(n_features=2048, max_keypoints=2176),
+        tracker=config.TrackerConfig(max_frames_between_kf=2,
+                                     depth_threshold_factor=150.0),
+        capacity=config.MapCapacity(max_keyframes=288, max_points=32768,
+                                    local_window=16, local_points=4096))
+
+
+def phase_eval_map(dev, runs: int = 3):
+    """One back-end pass at the eval map's newest keyframe, on the card and
+    through the port on the CPU."""
+    import torch
+
+    from sgslam_tpu_torch.io import checkpoint
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.slam import tracking
+
+    cfg = eval_config()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), EVAL_MAP)
+    m_dev, _ = checkpoint.load_map(path, device=dev)
+    m_cpu, _ = checkpoint.load_map(path, device="cpu")
+    kf = int(torch.nonzero(m_cpu.kf_valid).max())
+
+    hc.hamming_kernel.launches = 0
+    timer = StageTimer()
+    for _ in range(runs):     # the first run includes first-use set-up
+        out = tracking.process_new_keyframe(cfg, m_dev, kf, on_stage=timer)
+    torch.cuda.synchronize()
+    launches = hc.hamming_kernel.launches
+    first_ms = timer.passes[0][0][1].elapsed_time(timer.passes[0][-1][1])
+    timer.passes = timer.passes[1:]
+    pass_ms, stages = timer.split()
+    t0 = time.perf_counter()
+    ref = tracking.process_new_keyframe(cfg, m_cpu, kf)
+    cpu_s = time.perf_counter() - t0
+    got = out.to("cpu")
+
+    for name in ("kf_valid", "pt_valid", "kf_obs_point", "next_pt",
+                 "next_kf"):
+        if not torch.equal(getattr(got, name), getattr(ref, name)):
+            raise AssertionError(f"eval map: {name} differs between the "
+                                 "card and the CPU")
+    dt = float((got.kf_pose[:, 4:] - ref.kf_pose[:, 4:]).abs().max())
+    dq = float((got.kf_pose[:, :4] - ref.kf_pose[:, :4]).abs().max())
+    moved = ref.pt_valid & ((got.pt_pos != m_cpu.pt_pos).any(1)
+                            | (ref.pt_pos != m_cpu.pt_pos).any(1))
+    d = torch.linalg.vector_norm(got.pt_pos - ref.pt_pos, dim=1)[moved]
+    d = d.numpy()
+    print(f"[eval-map] keyframe {kf}: {int(m_cpu.kf_valid.sum())} -> "
+          f"{int(got.kf_valid.sum())} keyframes, {int(m_cpu.pt_valid.sum())} "
+          f"-> {int(got.pt_valid.sum())} points, K1 launches {launches} "
+          f"in {runs} passes")
+    print(f"[eval-map] back-end pass on the card (CUDA events, median of "
+          f"{runs - 1} after a first of {first_ms:.3f} ms): {pass_ms:.3f} "
+          f"ms = {_split_text(stages)}; the port on the CPU {cpu_s:.2f} s")
+    print(f"[eval-map] card vs CPU: integer outputs equal; poses "
+          f"{dt:.3g} m, quaternion {dq:.3g}; {len(d)} moved points: median "
+          f"{np.median(d):.3g} m, p95 {np.percentile(d, 95):.3g} m, max "
+          f"{d.max():.3g} m")
+    if launches < 2 * runs:
+        raise AssertionError(f"K1 launched {launches} times in {runs} passes")
+    if not (dt < TOL_WIN_POSE_T and dq < TOL_WIN_POSE_Q):
+        raise AssertionError(f"eval map: poses differ by {dt} m / {dq}")
+    if not (np.median(d) < TOL_WIN_POINT_MEDIAN
+            and np.percentile(d, 95) < TOL_WIN_POINT_P95):
+        raise AssertionError("eval map: points differ beyond tolerance")
+
+
+def capacity_config():
+    """tests/test_maintenance_live.py's configuration."""
+    from sgslam_tpu_torch import config
+
+    return config.synthetic_config(
+        width=320, height=240,
+        orb=config.OrbConfig(n_features=600, max_keypoints=640),
+        tracker=config.TrackerConfig(max_frames_between_kf=2,
+                                     depth_threshold_factor=70.0),
+        capacity=config.MapCapacity(max_keyframes=24, max_points=8192,
+                                    local_window=4, local_points=1024))
+
+
+def phase_capacity_pressure(dev, n_frames=LIVE_FRAMES):
+    """tests/test_maintenance_live.py's run: 24 keyframe slots, a keyframe
+    at least every 2 frames, so that compaction must fire."""
+    import torch
+
+    from sgslam_tpu_torch.io import synthetic
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.slam import tracking
+
+    cfg = capacity_config()
+    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames,
+                                      device=dev)
+    tr = tracking.Tracker(cfg, device=dev)
+    hc.hamming_kernel.launches = 0
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        tr.process(*seq.frame(i))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    rmse = _ate(tr, seq.poses.cpu().numpy())
+    print(f"[capacity] {n_frames} frames 320x240 in {run_s:.2f} s: state "
+          f"{tr.state}, {tr.n_kf} keyframes into "
+          f"{cfg.capacity.max_keyframes} slots, {tr.compactions} "
+          f"compactions, {int(tr.map.kf_valid.sum())} live keyframes, "
+          f"{int(tr.map.pt_valid.sum())} live points, ATE {rmse:.5f} m, K1 "
+          f"launches {hc.hamming_kernel.launches}")
+    if tr.state != "OK" or tr.compactions < 1 or \
+            tr.n_kf <= cfg.capacity.max_keyframes:
+        raise AssertionError("capacity pressure: compaction did not fire")
+    if not rmse < LIVE_ATE_GATE_M:
+        raise AssertionError(f"capacity pressure: ATE {rmse:.4f} m")
+    if hc.hamming_kernel.launches < 1:
+        raise AssertionError("capacity pressure: K1 never launched")
 
 
 def main() -> int:
@@ -231,25 +550,31 @@ def main() -> int:
     except ImportError as e:
         return _fail(f"the port is not beside this script ({e})")
 
-    # full float32 everywhere: no TF32 in matmuls (the resize pyramid)
+    # full float32 everywhere: no TF32 in matmuls (resize pyramid, BA)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
 
-    kernels = {"hamming_matrix": phase_hamming(dev, rng)}
+    from sgslam_tpu_torch import config
+
+    shapes = k1_shapes([config.synthetic_config(640, 480), eval_config(),
+                        capacity_config()])
+    popc = phase_build()
+    max_err = phase_k1_parity(dev, rng, shapes)
+    rate = phase_popc_rate(dev, popc)
+    kernels = {"hamming_matrix": phase_k1_time(dev, rng, rate, max_err,
+                                               shapes)}
     phase_main_path(dev, kernels)
+    phase_eval_map(dev)
+    phase_capacity_pressure(dev)
     if any(k["launches"] < 1 for k in kernels.values()):
         raise AssertionError("a kernel of the path was never launched")
     if "jax" in sys.modules or "sgslam_tpu" in sys.modules:
         raise AssertionError("the port imported JAX or the JAX package")
 
     print(json.dumps({"kernels": list(kernels.values())}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", "--id=0"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip())
+    print(_smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,6 +17,7 @@ import torch
 from .mapstate.local_map import LocalPoints
 from .mapstate.mapstate import MapState
 from .ops.orb import Features
+from .optim.local_ba import BAProblem
 
 _DESC_FIELDS = {"desc", "kf_feat_desc", "pt_desc"}
 
@@ -61,3 +62,11 @@ def map_to_numpy(m: MapState) -> dict:
 
 def local_points_to_numpy(local: LocalPoints) -> dict:
     return _as_numpy(local)
+
+
+def ba_problem_from_numpy(arrays: dict, device="cpu") -> BAProblem:
+    return _from_numpy(BAProblem, arrays, device)
+
+
+def ba_problem_to_numpy(prob: BAProblem) -> dict:
+    return _as_numpy(prob)

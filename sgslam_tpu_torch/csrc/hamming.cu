@@ -13,15 +13,14 @@
 //   * bytes: the int32 output is 4096 * 1024 * 4 = 16.8 MB; the inputs add
 //     0.16 MB. At 3.35 TB/s that is about 5.0 us.
 //   * operations: 4096 * 1024 * 8 = 33.5 M popc (plus as many XORs and
-//     adds). We take 16 popc results per clock per SM for compute
-//     capability 9.0, the rate of the throughput table in the CUDA C++
-//     Programming Guide as we recall it (not re-checked against the
-//     guide). At 132 SMs and 1.98 GHz boost that is 33.5e6 /
-//     (16 * 132 * 1.98e9) = 8.0 us. So popc issue, not memory, is the
-//     bound, by a small margin.
+//     adds). Compute capability 9.0 issues 16 popc per clock per SM: at
+//     132 SMs and 1.98 GHz, 4.18e12/s, so 33.5e6 / 4.18e12 = 8.0 us.
+//     (csrc/popc_bench.cu, run by chip_smoke.py on an H100 SXM at 700 W,
+//     reaches 15.5 per clock per SM; the bound takes the higher rate.)
+//     Popc issue, not memory, is the bound, by a small margin.
 //
-// Measured on an H100 SXM (700 W) by chip_smoke.py: 11.1 us per call at
-// 4096 x 1024 (CUDA-graph replay), 1.38x that bound.
+// Measured on an H100 SXM (700 W) by chip_smoke.py: 11.2 us per call at
+// 4096 x 1024 (CUDA-graph replay), 1.40x that bound.
 //
 // Design: a block of 32 x 8 threads owns a 64-row x 128-column output
 // tile. The tile's 64 A descriptors are staged once in shared memory and

@@ -1,9 +1,9 @@
 """The map as a fixed-capacity array-of-structs of tensors.
 
-Port of the tracking half of `sgslam_tpu/mapstate/mapstate.py`: `MapState`,
-`empty_map` and `insert_keyframe`. Culling clears validity bits;
-allocation is sequential. The covisibility functions wait for the keyframe
-back-end slice.
+Port of `sgslam_tpu/mapstate/mapstate.py`: `MapState`, `empty_map`, the
+covisibility functions and `insert_keyframe`. Culling clears validity bits;
+allocation is sequential. The covisibility graph is never stored: it is one
+[K, P] x [P, K] incidence product away.
 
 JAX's `mode="drop"` scatters become writes into a buffer with one spare row
 that collects the dropped writes, then a slice. `insert_keyframe` returns a
@@ -115,6 +115,53 @@ def _set_rows(x, idx, values):
     buf = torch.cat([x, x[:1]])
     buf[idx] = values.to(x.dtype)
     return buf[:-1]
+
+
+# ---------------------------------------------------------------------------
+# Covisibility (replaces KeyFrame::UpdateConnections / GetBestCovisibility*)
+# ---------------------------------------------------------------------------
+
+def incidence_matrix(m: MapState, dtype=torch.float32):
+    """[K, P] 1.0 where keyframe k observes point p."""
+    K, P = m.max_kf, m.max_pt
+    obs = m.kf_obs_point.to(torch.int64)
+    ok = (obs >= 0) & m.kf_valid[:, None]
+    k_idx = torch.arange(K, device=m.device)[:, None].expand(obs.shape)
+    flat_k = torch.where(ok, k_idx, 0).reshape(-1)
+    flat_p = torch.where(ok, obs, P).reshape(-1)  # invalid -> spare column
+    inc = torch.zeros((K, P + 1), dtype=dtype, device=m.device)
+    inc.index_put_((flat_k, flat_p), ok.reshape(-1).to(dtype),
+                   accumulate=True)
+    return torch.clamp(inc[:, :P], max=1.0)
+
+
+def covisibility_rows(m: MapState, kf_ids, min_weight: int = 15):
+    """[Q, K] shared-point counts between query keyframes and all others,
+    zero-diagonal, thresholded: the per-row form of `covisibility`."""
+    P = m.max_pt
+    kf_ids = torch.as_tensor(kf_ids, device=m.device).to(torch.int64)
+    Q = kf_ids.shape[0]
+    obs_q = m.kf_obs_point[kf_ids].to(torch.int64)          # [Q,N]
+    member = torch.zeros((Q, P + 1), dtype=torch.float32, device=m.device)
+    # every write of a row is 1.0 except those into the spare slot P
+    member.scatter_(1, torch.where(obs_q >= 0, obs_q, P),
+                    (obs_q >= 0).to(torch.float32))
+    obs = torch.where(m.kf_obs_point >= 0, m.kf_obs_point, P).to(torch.int64)
+    row = torch.sum(member[:, obs], dim=2)                  # [Q,K]
+    row = row * m.kf_valid * m.kf_valid[kf_ids][:, None]
+    row[torch.arange(Q, device=m.device), kf_ids] = 0.0
+    return torch.where(row >= min_weight, row, 0.0)
+
+
+def covisibility(m: MapState, min_weight: int = 15):
+    """[K, K] shared-point counts, zero-diagonal, thresholded: the contract
+    of KeyFrame::UpdateConnections (weight >= 15 edges, KeyFrame.cc:290)
+    as one incidence product. The counts are integers below 2**24, exact in
+    f32 whatever the summation order."""
+    inc = incidence_matrix(m)
+    w = inc @ inc.T
+    w = w * (1.0 - torch.eye(m.max_kf, dtype=w.dtype, device=w.device))
+    return torch.where(w >= min_weight, w, 0.0)
 
 
 def insert_keyframe(cam, scale_factor: float, m: MapState, feats: Features,

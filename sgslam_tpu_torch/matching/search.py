@@ -1,8 +1,8 @@
 """Data-association searches over fixed-capacity feature sets.
 
-Port of the tracking half of `sgslam_tpu/matching/search.py`: every search
-is a dense masked distance matrix with the spatial window, level window,
-threshold and ratio test applied as masks. Ties resolve to the lowest index,
+Port of `sgslam_tpu/matching/search.py`: every search is a dense masked
+distance matrix with the spatial window, level window, threshold, ratio
+test and rotation-consistency histogram applied as masks. Ties resolve to the lowest index,
 as `jnp.argmin` resolves them. Match tables are (idx [N], ok [N] bool,
 dist [N]) mapping query rows to train rows.
 """
@@ -12,7 +12,29 @@ from __future__ import annotations
 import torch
 
 from ..config import MatcherConfig
+from ..ops.orb import topk_stable
 from .hamming import MAX_DIST, _second_min, hamming_matrix
+
+TWO_PI = 6.283185307179586
+
+
+def rotation_consistency(dtheta, ok, histo_length: int = 30, keep_top: int = 3):
+    """Keep only matches whose angle delta falls in the top-k histogram bins
+    (ORBmatcher::ComputeThreeMaxima + the mvRotHist filter,
+    ORBmatcher.cc:1603-1646). dtheta: [N] radians; ok: [N] bool.
+
+    `torch.remainder` is a floor-mod like `jnp.mod`, so negative deltas land
+    in the same bins; bins within reach of the third count are kept, ties
+    beyond the top-k included, as in the reference."""
+    t = torch.remainder(dtheta, TWO_PI)
+    bins = torch.clamp((t * (histo_length / TWO_PI)).to(torch.int64), 0,
+                       histo_length - 1)
+    hist = torch.zeros(histo_length, dtype=torch.int32, device=ok.device)
+    hist.scatter_add_(0, bins, ok.to(torch.int32))
+    top = topk_stable(hist, keep_top)[0]
+    thresh = torch.clamp(top[0] // 10, min=1)
+    good_bin = hist >= torch.maximum(top[keep_top - 1], thresh)
+    return ok & good_bin[bins]
 
 
 def match_by_descriptor(desc_q, valid_q, desc_t, valid_t,

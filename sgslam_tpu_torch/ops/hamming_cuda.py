@@ -25,7 +25,8 @@ from pathlib import Path
 import torch
 
 WORDS = 8
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "hamming.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_SOURCE = CSRC / "hamming.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -52,19 +53,19 @@ def hamming_matrix_reference(a, b):
     return out.to(torch.int32)
 
 
-def build_library(verbose: bool = False) -> Path:
-    """Compile csrc/hamming.cu (if not already built) and return the path
-    of the shared library. The file name carries a hash of the source and
-    the flags, so an edit rebuilds."""
-    src = _SOURCE.read_bytes()
+def build_library(verbose: bool = False, source: Path = _SOURCE) -> Path:
+    """Compile a CUDA source of csrc/ (by default hamming.cu), if not
+    already built, into a shared library and return its path. The file
+    name carries a hash of the source and the flags, so an edit rebuilds."""
+    src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = _BUILD_DIR / f"libsgslam_hamming_{tag}.so"
+    lib = _BUILD_DIR / f"libsgslam_{source.stem}_{tag}.so"
     if lib.exists():
         return lib
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the Hamming kernel")
+                           f"build {source.name}")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
@@ -72,12 +73,12 @@ def build_library(verbose: bool = False) -> Path:
         cmd = [nvcc, *NVCC_FLAGS]
         if verbose:
             cmd += ["-Xptxas", "-v"]
-        res = subprocess.run(cmd + ["-o", tmp, str(_SOURCE)],
+        res = subprocess.run(cmd + ["-o", tmp, str(source)],
                              capture_output=True, text=True, check=False)
         if verbose or res.returncode != 0:
             print(res.stdout + res.stderr, end="")
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}) on {_SOURCE}")
+            raise RuntimeError(f"nvcc failed ({res.returncode}) on {source}")
         os.replace(tmp, lib)      # atomic: concurrent builds never see half
     finally:
         if os.path.exists(tmp):

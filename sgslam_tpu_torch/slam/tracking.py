@@ -1,17 +1,18 @@
-"""The per-frame RGB-D tracking pipeline and its host state machine.
+"""The per-frame RGB-D tracking pipeline, the keyframe back-end, and their
+host state machine.
 
 Port of `sgslam_tpu/slam/tracking.py` (`extract_frame`, `track_step`,
-`Tracker`). `track_step` is the reference's TrackWithMotionModel +
-TrackLocalMap contract: local-point selection, then two rounds of
-projective search, duplicate resolution and motion-only BA. Each round's
-search computes one [local points x keypoints] Hamming matrix through the
-CUDA kernel (`ops/hamming_cuda.py`) on the GPU.
+`local_ba_step`, `local_ba_cov_step`, `process_new_keyframe`, `Tracker`).
+`track_step` is the reference's TrackWithMotionModel + TrackLocalMap
+contract: local-point selection, then two rounds of projective search,
+duplicate resolution and motion-only BA. Each round's search computes one
+[local points x keypoints] Hamming matrix through the CUDA kernel
+(`ops/hamming_cuda.py`) on the GPU; the back-end pass adds two more
+(triangulation and duplicate fusion).
 
-The reference's `lax.cond` brute-force fallback is a Python `if` on the
-stage-1 inlier count, which costs one host round trip per frame. The
-keyframe back-end (local BA, maintenance) and map compaction belong to the
-next slice: where the `Tracker` would have to run either, it raises
-`NotImplementedError`, never skipping them silently.
+The reference's `lax.cond`s are Python `if`s here: the brute-force
+fallback on the stage-1 inlier count (one host read per frame), and the
+back-end pass's two guards (two host reads per keyframe).
 """
 
 from __future__ import annotations
@@ -24,13 +25,13 @@ from ..config import SlamConfig
 from ..geometry import se3
 from ..geometry.camera import project
 from ..mapstate import local_map as lm
+from ..mapstate import maintenance as mt
 from ..mapstate import mapstate as ms
 from ..matching import search
 from ..ops import orb
-from ..optim import pose_opt
+from ..optim import local_ba, pose_opt
 
 NO_POINT = ms.NO_POINT
-BACKEND_TODO = "ROADMAP.md, queue item 7 (Slice B: keyframe back-end)"
 
 
 def _as_tensor(x, device):
@@ -127,6 +128,72 @@ def track_step(cfg: SlamConfig, m: ms.MapState, feats: orb.Features,
     return Tcw2, matched, n2, tracked_close, untracked_close
 
 
+def _window_ba(cfg: SlamConfig, m: ms.MapState, ids, opt_mask):
+    cap = cfg.capacity
+    prob, pids = lm.build_ba_problem(cfg.camera, m, ids, opt_mask,
+                                     max_points=cap.local_points,
+                                     scale_factor=cfg.orb.scale_factor)
+    poses, points, _ = local_ba.bundle_adjust(
+        cfg.camera, prob, iters1=cfg.tracker.local_ba_iters1,
+        iters2=cfg.tracker.local_ba_iters2)
+    return lm.writeback_ba(m, ids, opt_mask, poses, pids, points)
+
+
+def local_ba_step(cfg: SlamConfig, m: ms.MapState, center_kf):
+    """Temporal window -> BA -> writeback (LocalMapping's per-KF
+    Optimizer::LocalBundleAdjustment call). Sequential keyframes are the
+    covisible set of a moving RGB-D camera; `local_ba_cov_step` is the
+    covisibility-ranked variant."""
+    w = cfg.capacity.local_window
+    ids, opt_mask = lm.ba_window_temporal(m, center_kf, window=w,
+                                          n_fixed=w // 2)
+    return _window_ba(cfg, m, ids, opt_mask)
+
+
+def local_ba_cov_step(cfg: SlamConfig, m: ms.MapState, center_kf, cov):
+    """Covisibility-ranked local BA around `center_kf`, the loop-closure
+    path's window (Optimizer.cc:456-504); `cov` is the [K, K] covisibility
+    matrix. It runs with the hot path's convergence tolerance."""
+    w = cfg.capacity.local_window
+    ids, opt_mask = lm.ba_window(m, center_kf, cov, window=w, n_fixed=w // 2)
+    return _window_ba(cfg, m, ids, opt_mask)
+
+
+BACKEND_STAGES = ("cull", "triangulate", "fuse", "ba", "kf_cull")
+
+
+def process_new_keyframe(cfg: SlamConfig, m: ms.MapState, kf_id,
+                         on_stage=None):
+    """The per-keyframe back-end pass on the map's device, in the order of
+    LocalMapping::Run (LocalMapping.cc:61-87): MapPointCulling ->
+    CreateNewMapPoints (triangulation with the previous valid keyframe) ->
+    SearchInNeighbors (duplicate fusion) -> LocalBundleAdjustment (with at
+    least 3 valid keyframes) -> KeyFrameCulling.
+
+    `on_stage(name)`, if given, is called with "begin" and then after each
+    stage of BACKEND_STAGES (for timing; it must not touch the map).
+    """
+    mark = on_stage or (lambda name: None)
+    mark("begin")
+    m = mt.cull_map_points(m)
+    mark("cull")
+    prev = int(mt.prev_valid_kf(m, kf_id))
+    if prev >= 0:
+        m = mt.triangulate_new_points(cfg.camera, m, kf_id, prev,
+                                      scale_factor=cfg.orb.scale_factor)
+    mark("triangulate")
+    m = mt.fuse_duplicates(cfg.camera, m, kf_id,
+                           scale_factor=cfg.orb.scale_factor,
+                           max_candidates=cfg.capacity.local_points)
+    mark("fuse")
+    if int(torch.sum(m.kf_valid)) >= 3:
+        m = local_ba_step(cfg, m, kf_id)
+    mark("ba")
+    m = mt.cull_keyframes(m)
+    mark("kf_cull")
+    return m
+
+
 class Tracker:
     """Host-side state machine (System+Tracking facade without semantics).
 
@@ -153,6 +220,9 @@ class Tracker:
         self.ref_matches = 200     # match count at the reference keyframe
         self.n_kf = 0
         self.local_ba_every = local_ba_every
+        self.on_compaction = None    # callback(kf_old_to_new, old_valid)
+        self.on_backend_stage = None  # process_new_keyframe's on_stage
+        self.compactions = 0
         self.last_kf_id = -1
         self.last_reloc_frame_id = -999
         self.kf_inserted = False
@@ -187,19 +257,45 @@ class Tracker:
         self.n_kf += 1
         self.kf_inserted = True
         self.last_kf_id = kf_slot
+        # full back-end pass per keyframe (LocalMapping::Run contract):
+        # point culling, triangulation, fusion, local BA, KF culling
         if self.n_kf >= 2 and (self.n_kf % self.local_ba_every == 0):
-            raise NotImplementedError(
-                "the per-keyframe back-end pass (point culling, "
-                "triangulation, fusion, local BA, keyframe culling) is not "
-                f"ported yet: {BACKEND_TODO}. Pass local_ba_every larger "
-                "than the run's keyframe count.")
+            self.map = process_new_keyframe(self.cfg, self.map, kf_slot,
+                                            on_stage=self.on_backend_stage)
+        self._maybe_compact()
+
+    def _maybe_compact(self):
+        """Repack the map when monotonic slot allocation nears capacity.
+
+        Frames recorded relative to a culled keyframe are re-anchored to
+        absolute poses first (their reference slot is about to be reused),
+        then reference-KF slot ids are remapped.
+        """
         m = self.map
-        if (int(m.next_kf) >= m.max_kf - 4
-                or int(m.next_pt) >= m.max_pt - 2048):
-            raise NotImplementedError(
-                f"map compaction is not ported yet: {BACKEND_TODO}. The map "
-                f"holds {int(m.next_kf)} of {m.max_kf} keyframe slots and "
-                f"{int(m.next_pt)} of {m.max_pt} point slots.")
+        if (int(m.next_kf) < m.max_kf - 4
+                and int(m.next_pt) < m.max_pt - 2048):
+            return
+        kf_valid = m.kf_valid.cpu().numpy()
+        kf_pose = m.kf_pose.cpu()
+        m2, kf_map, _ = mt.compact_map(m)
+        kf_map = kf_map.cpu().numpy()
+        for i, ref in enumerate(self.traj_ref_kf):
+            if ref < 0:
+                continue
+            if kf_valid[ref]:
+                self.traj_ref_kf[i] = int(kf_map[ref])
+            else:  # anchor KF was culled: bake the absolute pose
+                T_abs = se3.se3_compose(torch.as_tensor(self.traj_rel[i]),
+                                        kf_pose[ref]).numpy()
+                self.traj_ref_kf[i] = -1
+                self.traj_rel[i] = T_abs
+                self.trajectory[i] = T_abs
+        if self.last_kf_id >= 0 and kf_valid[self.last_kf_id]:
+            self.last_kf_id = int(kf_map[self.last_kf_id])
+        self.map = m2
+        self.compactions += 1
+        if self.on_compaction is not None:
+            self.on_compaction(kf_map, kf_valid)
 
     def process(self, gray, depth, feats=None) -> np.ndarray:
         """Track one RGB-D frame; returns Tcw [7] (numpy)."""

@@ -126,6 +126,47 @@ def test_select_local_points(scene, frame):
                                atol=1e-3)
 
 
+# `_log_f32` (the port's copy of XLA's CPU logf) and XLA's own log differ
+# by one ulp on ~0.03% of f32 inputs, so a ratio on a level boundary can
+# land on the other level. Measured over the ratios below: one at scale
+# factor 1.2 (2.48832, the f32 nearest 1.2**5: port 6, reference 5), none at
+# 1.5. XLA's CPU code depends on the host's vector units, hence a bound
+# rather than the list.
+MAX_LEVEL_GAPS = 2
+
+
+@pytest.mark.parametrize("scale_factor", [1.2, 1.5])
+def test_pred_level_matches_reference(scale_factor):
+    """The port's threshold lookup against its own log rule (equal) and the
+    reference's (sgslam_tpu/mapstate/local_map.py:66-69; equal but for at
+    most MAX_LEVEL_GAPS ratios): every f32 ratio within 2**16 ulps of each
+    level boundary, and 2**18 log-uniform ratios."""
+    import jax
+
+    bounds = tlm._level_thresholds(scale_factor, torch.device("cpu"))
+    near = (bounds.view(torch.int32)[:, None]
+            + torch.arange(-2 ** 16, 2 ** 16, dtype=torch.int32)[None])
+    rng = np.random.default_rng(0)
+    far = np.exp(rng.uniform(np.log(1e-7), np.log(1e3), 2 ** 18))
+    ratio = torch.cat([near.reshape(-1).view(torch.float32),
+                       torch.from_numpy(far.astype(np.float32))])
+
+    @jax.jit
+    def ref_level(r):
+        return jnp.clip(jnp.ceil(jnp.log(jnp.maximum(r, 1e-6))
+                                 / np.log(scale_factor)).astype(jnp.int32),
+                        0, 7)
+
+    ref = np.asarray(ref_level(jnp.asarray(ratio.numpy())))
+    out = tlm._pred_level(ratio, scale_factor).numpy()
+    own = tlm._level_of_ratio(torch.clamp(ratio, min=1e-6),
+                              scale_factor).numpy()
+    assert set(np.unique(ref)) == set(range(8))
+    np.testing.assert_array_equal(out, own)
+    gaps = ratio.numpy()[out != ref]
+    assert len(gaps) <= MAX_LEVEL_GAPS, gaps
+
+
 def test_empty_map_layout():
     ref = _np(jms.empty_map(JCFG.capacity, 640))
     out = convert.map_to_numpy(tms.empty_map(TCFG.capacity, 640))

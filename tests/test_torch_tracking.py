@@ -2,12 +2,16 @@
 track the same 30 JAX-rendered frames with the back-end switched off
 (`local_ba_every` larger than the run).
 
-The two are not bit-identical: pyramid levels 1-7 differ by f32 ulps,
-which reorders tied keypoints (test_torch_orb.py), so match tie-breaks,
-inlier counts and poses move a little. States and keyframe decisions must
-agree; the rest is held to the tolerances below, set from this run's
-measured gaps (ROADMAP.md, "Faults found in the port").
+When each package extracts its own features, the two are not
+bit-identical: pyramid levels 1-7 differ by f32 ulps, which reorders tied
+keypoints (test_torch_orb.py), so match tie-breaks, inlier counts and
+poses move a little. States and keyframe decisions must agree; the rest is
+held to the tolerances below, set from this run's measured gaps
+(ROADMAP.md, "Faults found in the port"). Given the same (JAX-extracted)
+features, the two trackers agree to f32 rounding (`test_same_features_*`).
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +24,7 @@ from sgslam_tpu.geometry import se3 as jse3
 from sgslam_tpu.io import synthetic as jsyn
 from sgslam_tpu.slam import tracking as jtr
 from sgslam_tpu_torch import config as tcfg
+from sgslam_tpu_torch import convert
 from sgslam_tpu_torch.eval import ate as tate
 from sgslam_tpu_torch.slam import tracking as ttr
 
@@ -129,15 +134,63 @@ def test_ate_gate(runs):
     assert abs(ate_t - ate_j) < TOL_ATE_DIFF, (ate_t, ate_j)
 
 
-def test_backend_raises_not_implemented(runs):
-    """With the back-end switched on (the reference's default), the port
-    refuses at the second keyframe instead of silently skipping it."""
+@pytest.fixture(scope="module")
+def same_features():
+    """Both trackers, back-end off, on the same JAX-extracted features."""
+    seq = jsyn.SyntheticSequence(JCFG.camera, n_frames=N_FRAMES)
+    feats = [jtr.extract_frame(JCFG, *seq.frame(i)) for i in range(N_FRAMES)]
+    tj = jtr.Tracker(JCFG, local_ba_every=NO_BACKEND)
+    tt = ttr.Tracker(TCFG, local_ba_every=NO_BACKEND, device="cpu")
+    kfs = ([], [])
+    for i, f in enumerate(feats):
+        arrays = {fl.name: np.asarray(getattr(f, fl.name))
+                  for fl in dataclasses.fields(f)}
+        tj.process(None, None, feats=f)
+        tt.process(None, None, feats=convert.features_from_numpy(arrays))
+        for tr, k in ((tj, kfs[0]), (tt, kfs[1])):
+            if tr.kf_inserted:
+                k.append(i)
+    return tj, tt, kfs
+
+
+def test_same_features_trackers_agree(same_features):
+    """Without the pyramid in the comparison the two trackers hold the
+    tolerances first asked of this slice: max(3, 2%) inliers and 5e-3 m.
+    Measured: inliers identical, poses within 7.2e-7 m. (Before the port
+    computed the predicted level with the reference's log polynomial,
+    `mapstate/local_map._log_f32`, 35 of 256 levels flipped on frame 1 and
+    the poses drifted up to 0.0105 m apart.)"""
+    tj, tt, (kj, kt) = same_features
+    assert kt == kj and len(kj) >= 2
+    nj, nt = np.array(tj.n_inliers_hist), np.array(tt.n_inliers_hist)
+    assert (np.abs(nt - nj) <= np.maximum(3, 0.02 * nj)).all(), (nj, nt)
+    cw_j, cw_t = tj.poses_cw(), tt.poses_cw()
+    np.testing.assert_allclose(cw_t[:, 4:7], cw_j[:, 4:7], atol=5e-3, rtol=0)
+    np.testing.assert_allclose(cw_t[:, :4], cw_j[:, :4], atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(tt.map.kf_obs_point.numpy(),
+                                  np.asarray(tj.map.kf_obs_point))
+
+
+def test_default_tracker_runs_backend():
+    """With its defaults the port's `Tracker` runs the back-end pass after
+    every keyframe from the second on, and `_maybe_compact` after every
+    insertion, as the reference does."""
     gray, depth = (np.array(x) for x in jsyn.render_frame(
         JCFG.camera, jsyn.make_trajectory(N_FRAMES)[0]))
-    tr = ttr.Tracker(TCFG, local_ba_every=1, device="cpu")
+    cap = tcfg.MapCapacity(max_keyframes=6, max_points=8192,
+                           local_window=4, local_points=1024)
+    tr = ttr.Tracker(dataclasses.replace(TCFG, capacity=cap), device="cpu")
+    assert tr.local_ba_every == 1
+    stages = []
+    tr.on_backend_stage = stages.append
     tr.process(gray, depth)                 # initialization: keyframe 1
-    assert tr.n_kf == 1
+    assert tr.n_kf == 1 and stages == [] and tr.compactions == 0
     feats = ttr.extract_frame(TCFG, gray, depth, device="cpu")
-    tr.frame_id += TCFG.tracker.max_frames_between_kf   # force a keyframe
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for n_kf in (2, 3):
+        tr.frame_id += TCFG.tracker.max_frames_between_kf  # force a keyframe
         tr.process(gray, depth, feats=feats)
+        assert tr.n_kf == n_kf and tr.state == "OK"
+    assert stages == 2 * ["begin", *ttr.BACKEND_STAGES]
+    # 6 slots: from the second keyframe on, next_kf >= 6 - 4 compacts
+    assert tr.compactions == 2
+    assert int(tr.map.next_kf) == int(tr.map.kf_valid.sum())

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's tracking path on the GPU.
+"""Where the time goes in the port's tracking path and keyframe back-end on
+the GPU.
 
     python tools/profile_torch_tracking.py [--frames 60] [--window 10]
+                                           [--passes 3]
 
 Tracks the full-width synthetic sequence (640x480, 1000 features, 1024
-keypoints, 4096 local points) with `sgslam_tpu_torch`, then re-runs a window
-of frames under `torch.profiler` twice: once around `extract_frame` alone
-(stateless) and once around `Tracker.process` on those frames' features.
-For each it prints the host wall time per frame (synchronized), the summed
-device kernel time, the device idle share, the kernel launches per frame and
-the heaviest kernels; the same goes to a JSON file (default
-chiprun_out/profile_torch_tracking.json). The sequence is tracked twice,
-and the largest difference between the two trajectories is reported: the
-run-to-run reproducibility of the GPU path. It needs a CUDA device.
+keypoints, 4096 local points) with `sgslam_tpu_torch` and the back-end off,
+then re-runs a window of frames under `torch.profiler` twice: once around
+`extract_frame` alone (stateless) and once around `Tracker.process` on
+those frames' features. Then it profiles `--passes` back-end passes
+(`process_new_keyframe`, after one unprofiled pass) at two widths: on the
+tracked map at its newest keyframe, and on `sgslam_tpu/assets/eval_map.npz`
+(2176 keypoints, window 16+8). For each it prints the host wall time per
+frame or pass (synchronized), the summed device kernel time, the device
+idle share, the kernel launches and the heaviest kernels; the same goes to
+a JSON file (default build/profile_torch_tracking.json). The
+sequence is tracked twice, and the largest difference between the two
+trajectories is reported: the run-to-run reproducibility of the GPU path.
+It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,10 +32,12 @@ import time
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
+import chip_smoke  # noqa: E402
 from sgslam_tpu_torch import config  # noqa: E402
-from sgslam_tpu_torch.io import synthetic  # noqa: E402
+from sgslam_tpu_torch.io import checkpoint, synthetic  # noqa: E402
 from sgslam_tpu_torch.ops import hamming_cuda  # noqa: E402
 from sgslam_tpu_torch.slam import tracking  # noqa: E402
 
@@ -75,7 +83,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--window", type=int, default=10)
-    ap.add_argument("--out", default="chiprun_out/profile_torch_tracking.json")
+    ap.add_argument("--passes", type=int, default=3)
+    ap.add_argument("--out", default="build/profile_torch_tracking.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_tracking: needs a CUDA device", file=sys.stderr)
@@ -111,6 +120,18 @@ def main() -> int:
     hamming_cuda.hamming_kernel.launches = 0
     extract = _profiled(run_extract, len(window))
     track = _profiled(run_track, len(window))
+    k1_per_frame = hamming_cuda.hamming_kernel.launches / len(window)
+
+    def backend(cfg_b, m, kf):
+        tracking.process_new_keyframe(cfg_b, m, kf)   # first-use set-up
+        return _profiled(lambda: [tracking.process_new_keyframe(cfg_b, m, kf)
+                                  for _ in range(args.passes)], args.passes)
+
+    backend_main = backend(cfg, tr.map, tr.last_kf_id)
+    m_eval, _ = checkpoint.load_map(os.path.join(ROOT, chip_smoke.EVAL_MAP),
+                                    device=dev)
+    backend_eval = backend(chip_smoke.eval_config(), m_eval,
+                           int(torch.nonzero(m_eval.kf_valid).max()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"],
                          capture_output=True, text=True, check=True,
@@ -120,22 +141,26 @@ def main() -> int:
               "repeat_pose_max_abs_diff": repeat_diff,
               "window_frames": len(window), "frame_range": [start,
                                                             args.frames],
-              "k1_launches_per_frame":
-                  hamming_cuda.hamming_kernel.launches / len(window),
+              "k1_launches_per_frame": k1_per_frame,
               "extract_frame": extract, "track": track,
+              "backend_pass_main_map": backend_main,
+              "backend_pass_eval_map": backend_eval,
               "tracker_state": tr.state}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
-    for name in ("extract_frame", "track"):
+    # the "_per_frame" keys of the back-end entries are per pass
+    for name in ("extract_frame", "track", "backend_pass_main_map",
+                 "backend_pass_eval_map"):
         r = result[name]
-        print(f"[profile] {name}: wall {r['wall_ms_per_frame']:.3f} ms/frame,"
-              f" device {r['device_ms_per_frame']:.3f} ms/frame, idle "
-              f"{100 * r['device_idle_share']:.1f}%, "
-              f"{r['kernel_launches_per_frame']:.0f} kernels/frame, K1 "
-              f"{r['k1_us_per_frame']:.1f} us/frame")
+        unit = "pass" if name.startswith("backend") else "frame"
+        print(f"[profile] {name}: wall {r['wall_ms_per_frame']:.3f} "
+              f"ms/{unit}, device {r['device_ms_per_frame']:.3f} ms/{unit}, "
+              f"idle {100 * r['device_idle_share']:.1f}%, "
+              f"{r['kernel_launches_per_frame']:.0f} kernels/{unit}, K1 "
+              f"{r['k1_us_per_frame']:.1f} us/{unit}")
         for k in r["top_kernels"][:5]:
-            print(f"    {k['us_per_frame']:9.1f} us/frame "
+            print(f"    {k['us_per_frame']:9.1f} us/{unit} "
                   f"{k['calls_per_frame']:6.1f}x  {k['name']}")
     print(f"[profile] second pass vs first: poses differ by at most "
           f"{repeat_diff:.3g}")
