@@ -28,10 +28,24 @@ Phases, each of which fails the run if it fails:
      parity tests' tolerances;
   6. capacity pressure at a smaller depth: 120 frames at 320x240 into 24
      keyframe slots, so that map compaction must fire;
-  7. print the `kernels` line, the card's name and power limit, and last
-     `{"ok": true, "device": ...}`.
-The kernel launch counts are set to 0 just before each of phases 4-6 and
-read just after; the `kernels` line carries phase 4's.
+  7. the semantic system at full width, the slice's main path:
+     `tools/run_eval.py`'s `dynamic_640_3walkers_fastrot` sequence (150
+     frames at 640x480, three walkers, fast rotation, rendered on the card)
+     through `System(cfg, enable_loop=False).track_rgbd` with the shipped
+     SSDLite detector, the dynamic-feature cull (one K1 launch per frame
+     for the frame-to-frame matches), tracking with the back-end and the
+     semantic mapper; checks state, ATE, person detections, K1 launches
+     and the occupancy map, and times each stage with CUDA events;
+  8. semantic objects at a smaller depth: tests/test_semantic_objects_live
+     .py's run (24 frames at 320x240, people and props): an object of the
+     database matches a prop by class within 0.5 m;
+  9. card against the CPU: the detector on five phase-7 frames (TF32 off),
+     the frame-to-frame match tables, and `reject_dynamic_matched` with the
+     same RANSAC samples on both devices;
+  then print the `kernels` line, the card's name and power limit, and last
+  `{"ok": true, "device": ...}`.
+The kernel launch counts are set to 0 just before each of phases 4-8 and
+read just after; the `kernels` line carries phase 7's.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. It imports nothing of JAX.
@@ -73,6 +87,20 @@ TOL_WIN_POINT_P95 = 0.1
 
 LIVE_FRAMES = 120
 LIVE_ATE_GATE_M = 0.08
+
+SEM_FRAMES = 150
+SEM_ATE_GATE_M = 0.05          # the EVAL dynamic gate (tools/run_eval.py)
+MIN_PERSON_SHARE = 0.6
+MIN_OCCUPIED_CELLS = 20
+OBJ_FRAMES = 24
+OBJ_MATCH_M = 0.5
+# card vs CPU (phase 9): the detector with TF32 off, normalized boxes and
+# scores; the cull within the reference's own one-ulp spread
+# (tools/parity_spread.py cull: up to 64 keep flags, 7 F inliers)
+TOL_DET_BOX = 1e-4
+TOL_DET_SCORE = 1e-4
+MAX_KEEP_FLIPS = 64
+MAX_INLIER_GAP = 7
 
 
 def _fail(msg: str) -> int:
@@ -298,8 +326,9 @@ def phase_k1_time(dev, rng, popc_rate: float, max_err: int, shapes):
 
 
 class StageTimer:
-    """`Tracker.on_backend_stage` / `process_new_keyframe(on_stage=)`:
-    a CUDA event at the start of each back-end pass and after each stage."""
+    """`Tracker.on_backend_stage` / `process_new_keyframe(on_stage=)` /
+    `System.on_stage`: a CUDA event at the start of each back-end pass (or
+    frame) and after each of its stages."""
 
     def __init__(self):
         self.passes = []
@@ -313,17 +342,23 @@ class StageTimer:
             self.passes.append([])
         self.passes[-1].append((name, ev))
 
-    def split(self):
-        """(median ms of the whole pass, {stage: median ms}) over passes."""
+    def groups(self):
+        """[{stage: ms}], one dict per pass (or frame)."""
         import torch
 
         torch.cuda.synchronize()
-        total, stages = [], {}
-        for events in self.passes:
-            total.append(events[0][1].elapsed_time(events[-1][1]))
-            for (_, a), (name, b) in zip(events, events[1:]):
-                stages.setdefault(name, []).append(a.elapsed_time(b))
-        return (float(np.median(total)),
+        return [{name: a.elapsed_time(b)
+                 for (_, a), (name, b) in zip(ev, ev[1:])}
+                for ev in self.passes]
+
+    def split(self):
+        """(median ms of the whole pass, {stage: median ms}) over passes."""
+        groups = self.groups()
+        stages = {}
+        for g in groups:
+            for name, ms in g.items():
+                stages.setdefault(name, []).append(ms)
+        return (float(np.median([sum(g.values()) for g in groups])),
                 {k: float(np.median(v)) for k, v in stages.items()})
 
 
@@ -538,6 +573,245 @@ def phase_capacity_pressure(dev, n_frames=LIVE_FRAMES):
         raise AssertionError("capacity pressure: K1 never launched")
 
 
+def semantic_config():
+    """tools/run_eval.py's configuration: the default production config
+    at 640x480 with a keyframe at least every 6 frames."""
+    from sgslam_tpu_torch import config
+
+    return config.synthetic_config(
+        width=640, height=480,
+        tracker=config.TrackerConfig(max_frames_between_kf=6,
+                                     depth_threshold_factor=70.0))
+
+
+def objects_config():
+    """tests/test_semantic_objects_live.py's configuration."""
+    from sgslam_tpu_torch import config
+
+    return config.synthetic_config(
+        width=320, height=240,
+        orb=config.OrbConfig(n_features=600, max_keypoints=640),
+        capacity=config.MapCapacity(max_keyframes=64, max_points=8192,
+                                    local_window=4, local_points=1024))
+
+
+def _rgb(gray):
+    return gray[..., None].expand(-1, -1, 3)
+
+
+def semantic_sequence(cfg, dev, n_frames=SEM_FRAMES):
+    """run_eval's dynamic_640_3walkers_fastrot, rendered on `dev` (a run
+    of fewer frames takes the first frames of the 150-frame walk)."""
+    from sgslam_tpu_torch.io import synthetic
+
+    return synthetic.SyntheticSequence(
+        cfg.camera, n_frames=n_frames, device=dev,
+        poses=synthetic.make_walk_trajectory(n_frames, yaw_amp=0.35,
+                                             device=dev),
+        people=synthetic.walker_tracks(n_frames, 3, depth0=1.6, half_h=0.62,
+                                       device=dev))
+
+
+def phase_semantic_system(dev, kernels, cfg=None, n_frames=SEM_FRAMES):
+    """The slice's main path: `System.track_rgbd` with the detector, the
+    cull, tracking with the back-end and the mapper."""
+    import torch
+
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.slam.system import System
+
+    cfg = cfg or semantic_config()
+    seq = semantic_sequence(cfg, dev)
+    frames = [seq.frame(i) for i in range(n_frames)]
+    torch.cuda.synchronize()
+    s = System(cfg, enable_loop=False, device=dev)
+    timer, backend = StageTimer(), StageTimer()
+    s.on_stage = timer
+    s.tracker.on_backend_stage = backend
+
+    hc.hamming_kernel.launches = 0
+    person, kf_frames = 0, []
+    t0 = time.perf_counter()
+    for i, (gray, depth) in enumerate(frames):
+        s.track_rgbd(gray, depth, rgb=_rgb(gray))
+        person += int(s.person_cull_boxes.valid.any())
+        if s.tracker.kf_inserted:
+            kf_frames.append(i)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = hc.hamming_kernel.launches
+    kernels["hamming_matrix"]["launches"] = launches
+
+    tracked = len(s.tracker.n_inliers_hist)
+    rmse = _ate(s.tracker, seq.poses[:n_frames].cpu().numpy())
+    occupied = int((s.mapper.occupancy_2d() > 0).sum())
+    n_obj = int(s.mapper.objects.valid.sum())
+    per_frame = timer.groups()
+    med = {}
+    for name in ("detector", "extract", "cull", "track"):
+        plain = [f[name] for i, f in enumerate(per_frame)
+                 if i not in kf_frames]
+        med[name] = float(np.median(plain))
+    kf_track = [per_frame[i]["track"] for i in kf_frames[1:]]
+    mapping = [per_frame[i]["mapping"] for i in kf_frames]
+    total = [sum(f.values()) for f in per_frame]
+    pass_ms, stages = backend.split()
+    print(f"[semantic] {n_frames} frames {cfg.camera.width}x"
+          f"{cfg.camera.height}, 3 walkers, in {run_s:.2f} s: state "
+          f"{s.state}, {s.tracker.n_kf} keyframes, {len(backend.passes)} "
+          f"back-end passes, person boxes in {person}/{n_frames} frames, "
+          f"ATE {rmse:.5f} m, K1 launches {launches} "
+          f"({launches / max(tracked, 1):.2f}/tracked frame), occupied "
+          f"cells {occupied}, database objects {n_obj}")
+    print(f"[semantic] per frame (median, CUDA events, frames without a "
+          f"keyframe): detector {med['detector']:.3f} ms, extract "
+          f"{med['extract']:.3f} ms, cull {med['cull']:.3f} ms, track "
+          f"{med['track']:.3f} ms; whole track_rgbd {np.median(total):.3f} "
+          f"ms; keyframe frames: track with the back-end "
+          f"{np.median(kf_track) if kf_track else float('nan'):.3f} ms, "
+          f"mapping {np.median(mapping):.3f} ms")
+    print(f"[semantic] back-end pass (median over {len(backend.passes)}): "
+          f"{pass_ms:.3f} ms = {_split_text(stages)}")
+    if s.state != "OK":
+        raise AssertionError(f"semantic system state {s.state}")
+    if not rmse < SEM_ATE_GATE_M:
+        raise AssertionError(f"semantic system ATE {rmse:.4f} m >= "
+                             f"{SEM_ATE_GATE_M} m")
+    if person < MIN_PERSON_SHARE * n_frames:
+        raise AssertionError(f"person boxes in only {person}/{n_frames} "
+                             "frames")
+    if launches < 3 * tracked:
+        raise AssertionError(f"K1 launched {launches} times for {tracked} "
+                             "tracked frames (expected >= 3 each)")
+    if occupied <= MIN_OCCUPIED_CELLS:
+        raise AssertionError(f"occupancy map has {occupied} occupied cells")
+    return frames[:5], frames
+
+
+def phase_semantic_objects(dev, n_frames=OBJ_FRAMES):
+    """tests/test_semantic_objects_live.py's run: props become fused 3-D
+    objects of the database."""
+    import torch
+
+    from sgslam_tpu_torch.geometry import se3
+    from sgslam_tpu_torch.io import synthetic
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.slam.system import System
+
+    cfg = objects_config()
+    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames,
+                                      dynamic=True, props=True, device=dev)
+    s = System(cfg, enable_loop=False, device=dev)
+    hc.hamming_kernel.launches = 0
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        gray, depth = seq.frame(i)
+        s.track_rgbd(gray, depth, rgb=_rgb(gray))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    gt = se3.se3_apply(se3.se3_inverse(seq.poses[0])[None],
+                       seq.props[:, :3]).cpu().numpy()
+    gt_cls = seq.props[:, 5].cpu().numpy().astype(int)
+    db = s.mapper.objects
+    valid = db.valid.cpu().numpy()
+    cents, clss = db.centroid.cpu().numpy()[valid], db.cls.cpu().numpy()[valid]
+    dists = []
+    for p, c in zip(gt, gt_cls):
+        d = np.linalg.norm(cents - p[None], axis=1)[clss == c]
+        dists.append(float(d.min()) if len(d) else float("inf"))
+    hits = sum(d < OBJ_MATCH_M for d in dists)
+    print(f"[objects] {n_frames} frames 320x240 in {run_s:.2f} s: state "
+          f"{s.state}, {int(valid.sum())} database objects (classes "
+          f"{sorted(clss.tolist())}), nearest same-class object to each "
+          f"prop {[round(d, 3) for d in dists]} m, {hits} matched within "
+          f"{OBJ_MATCH_M} m, K1 launches {hc.hamming_kernel.launches}")
+    if s.state != "OK" or hits < 1:
+        raise AssertionError("semantic objects: no database object matches "
+                             "a prop")
+    if hc.hamming_kernel.launches < 1:
+        raise AssertionError("semantic objects: K1 never launched")
+
+
+def phase_card_vs_cpu(dev, det_frames, pair):
+    """The detector on the card and on the CPU (TF32 off), the match
+    tables, and `reject_dynamic_matched` with the same samples."""
+    import torch
+
+    from sgslam_tpu_torch.models.detector import Detector2D
+    from sgslam_tpu_torch.semantic import dynamic
+    from sgslam_tpu_torch.slam import tracking
+
+    cfg = semantic_config()
+    d_dev = Detector2D(cfg.detector, device=dev)
+    d_cpu = Detector2D(cfg.detector, device="cpu")
+    logit_err, box_err, score_err = 0.0, 0.0, 0.0
+    for gray, _ in det_frames:
+        rgb = _rgb(gray)
+        _, lg = d_dev.raw(rgb)
+        _, lc = d_cpu.raw(rgb.cpu())
+        logit_err = max(logit_err, float((lg.cpu() - lc).abs().max()))
+        og = [x.cpu() for x in d_dev.detect_normalized(rgb)]
+        oc = d_cpu.detect_normalized(rgb.cpu())
+        if not (torch.equal(og[3], oc[3]) and torch.equal(og[1][oc[3]],
+                                                         oc[1][oc[3]])):
+            raise AssertionError("detector: valid flags or classes differ "
+                                 "between the card and the CPU")
+        ok = oc[3]
+        box_err = max(box_err, float((og[0][ok] - oc[0][ok]).abs().max()))
+        score_err = max(score_err, float((og[2][ok] - oc[2][ok]).abs().max()))
+    print(f"[card-vs-cpu] detector on {len(det_frames)} frames: valid flags "
+          f"and classes equal; max |logit| gap {logit_err:.3g}, boxes "
+          f"{box_err:.3g} (normalized), scores {score_err:.3g}")
+    if box_err > TOL_DET_BOX or score_err > TOL_DET_SCORE:
+        raise AssertionError("detector boxes or scores differ beyond "
+                             "tolerance")
+
+    (g0, d0), (g1, d1) = pair
+    fp = tracking.extract_frame(cfg, g0, d0, dev)
+    fc = tracking.extract_frame(cfg, g1, d1, dev)
+    person_boxes = d_dev.detect(_rgb(g1), cfg.camera.width,
+                                cfg.camera.height)[1]
+    prev_boxes = d_dev.detect(_rgb(g0), cfg.camera.width,
+                              cfg.camera.height)[2]
+
+    def match(f_cur, f_prev):
+        return dynamic.match_prev_frame(
+            cfg.matcher, cfg.orb.scale_factor, f_cur, f_prev.xy_raw,
+            f_prev.level, f_prev.angle, f_prev.desc, f_prev.valid,
+            radius=cfg.dynamic.match_radius)
+
+    xy_g, st_g = match(fc, fp)
+    xy_c, st_c = match(fc.to("cpu"), fp.to("cpu"))
+    if not (torch.equal(st_g.cpu(), st_c) and torch.equal(xy_g.cpu(), xy_c)):
+        raise AssertionError("match_prev_frame differs between the card "
+                             "and the CPU")
+    rng = np.random.default_rng(0)
+    drawn = {}
+
+    def sampler(n_valid, iters):
+        n = max(int(n_valid), 8)
+        if "r" not in drawn:
+            drawn["r"] = rng.integers(0, n, (iters, 8))
+        return torch.from_numpy(drawn["r"]).to(n_valid.device)
+
+    out = []
+    for d in (dev, torch.device("cpu")):
+        keep, n_corr, n_inl = dynamic.reject_dynamic_matched(
+            cfg.dynamic, fc.xy_raw.to(d), fc.valid.to(d), xy_c.to(d),
+            st_c.to(d), person_boxes.to(d), prev_boxes.to(d), sampler)
+        out.append((keep.cpu(), int(n_corr), int(n_inl)))
+    flips = int((out[0][0] != out[1][0]).sum())
+    print(f"[card-vs-cpu] reject_dynamic_matched, same samples: "
+          f"{out[0][1]} correspondences on both, keeps {int(out[0][0].sum())}"
+          f" / {int(out[1][0].sum())}, F inliers {out[0][2]} / {out[1][2]}, "
+          f"{flips} keep flips (the reference's own one-ulp spread: up to "
+          f"{MAX_KEEP_FLIPS} flips, {MAX_INLIER_GAP} inliers)")
+    if out[0][1] != out[1][1] or flips > MAX_KEEP_FLIPS or \
+            abs(out[0][2] - out[1][2]) > MAX_INLIER_GAP:
+        raise AssertionError("reject_dynamic_matched: card and CPU differ "
+                             "beyond the reference's own spread")
+
+
 def main() -> int:
     try:
         import torch
@@ -559,7 +833,8 @@ def main() -> int:
     from sgslam_tpu_torch import config
 
     shapes = k1_shapes([config.synthetic_config(640, 480), eval_config(),
-                        capacity_config()])
+                        capacity_config(), semantic_config(),
+                        objects_config()])
     popc = phase_build()
     max_err = phase_k1_parity(dev, rng, shapes)
     rate = phase_popc_rate(dev, popc)
@@ -568,6 +843,9 @@ def main() -> int:
     phase_main_path(dev, kernels)
     phase_eval_map(dev)
     phase_capacity_pressure(dev)
+    det_frames, frames = phase_semantic_system(dev, kernels)
+    phase_semantic_objects(dev)
+    phase_card_vs_cpu(dev, det_frames, frames[40:42])
     if any(k["launches"] < 1 for k in kernels.values()):
         raise AssertionError("a kernel of the path was never launched")
     if "jax" in sys.modules or "sgslam_tpu" in sys.modules:

@@ -92,3 +92,9 @@ def in_image(cam: Camera, uv, margin: float = 0.0):
         & (uv[..., 1] >= margin)
         & (uv[..., 1] < cam.height - margin)
     )
+
+
+def intrinsic_matrix(cam: Camera, dtype=torch.float32, device=None):
+    return torch.tensor(
+        [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
+        dtype=dtype, device=device)

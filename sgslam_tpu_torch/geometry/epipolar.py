@@ -1,0 +1,159 @@
+"""Epipolar geometry: fundamental matrices, batched 8-point RANSAC.
+
+Port of `sgslam_tpu/geometry/epipolar.py`. The RANSAC hypotheses are one
+batch of tensors: `eight_point` takes [H, 8, 2] samples and factors the H
+normal matrices with one batched Cholesky.
+
+Two differences of form, none of result:
+- `cho_factor` returns NaN where a factorization fails. The f32 ridge
+  `1e-9 * trace(M)` lies below f32 resolution, so about half of the
+  hypotheses fail on real data, and which ones depends on rounding.
+  `torch.linalg.cholesky_ex` reports failures in `info` without a host
+  sync; the port writes NaN into every failed factor, so those hypotheses
+  count no inliers, as in the reference.
+- `jax.random.randint` cannot be reproduced in torch. The sample ranks are
+  an argument (`samples`), drawn by default from an explicit
+  `torch.Generator` as uniform floats scaled by the device-side
+  `max(n_valid, 8)`, so that sampling reads nothing back to the host.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import se3
+from .camera import Camera, intrinsic_matrix
+
+
+def fundamental_from_poses(cam: Camera, T1w, T2w):
+    """F12 such that x2^T F12 x1 = 0 for pixel coords, from Tcw poses."""
+    T12 = se3.se3_compose(T1w, se3.se3_inverse(T2w))  # cam2 -> cam1
+    R = se3.quat_to_mat(T12[:4])
+    E = se3.hat(T12[4:7]) @ R
+    Kinv = torch.linalg.inv(intrinsic_matrix(cam, device=T1w.device))
+    return Kinv.T @ E @ Kinv
+
+
+def epipolar_distance(F, p1, p2):
+    """Distance of p2 [N,2] from the epipolar line of p1 [N,2] under F
+    [..., 3, 3] (a batch of F gives [..., N]):
+    |a u2 + b v2 + c| / sqrt(a^2 + b^2)."""
+    x1 = torch.cat([p1, torch.ones_like(p1[..., :1])], -1)
+    line = x1 @ F.transpose(-1, -2)                   # [..., N, 3] (a,b,c)
+    num = torch.abs(torch.sum(line[..., :2] * p2, -1) + line[..., 2])
+    den = torch.sqrt(torch.sum(line[..., :2] ** 2, -1))
+    return num / torch.clamp(den, min=1e-9)
+
+
+def _normalize(pts):
+    """Hartley normalization of [..., K, 2] -> (points, T [..., 3, 3])."""
+    mu = pts.mean(-2)                                  # [..., 2]
+    d = torch.mean(torch.linalg.vector_norm(pts - mu[..., None, :], dim=-1),
+                   -1)
+    s = math.sqrt(2.0) / torch.clamp(d, min=1e-9)
+    zero, one = torch.zeros_like(s), torch.ones_like(s)
+    T = torch.stack([
+        torch.stack([s, zero, -s * mu[..., 0]], -1),
+        torch.stack([zero, s, -s * mu[..., 1]], -1),
+        torch.stack([zero, zero, one], -1)], -2)
+    ph = torch.cat([pts, torch.ones_like(pts[..., :1])], -1) @ \
+        T.transpose(-1, -2)
+    return ph[..., :2], T
+
+
+def _smallest_eigvec3(B):
+    """Unit eigenvector of the smallest eigenvalue of symmetric [..., 3, 3]
+    matrices: trigonometric eigenvalue formula + row-cross nullspace."""
+    eye = torch.eye(3, dtype=B.dtype, device=B.device)
+    q = torch.diagonal(B, dim1=-2, dim2=-1).sum(-1) / 3.0
+    Bq = B - q[..., None, None] * eye
+    p2 = torch.sum(Bq * Bq, (-2, -1)) / 6.0
+    p = torch.sqrt(torch.clamp(p2, min=1e-30))
+    r = torch.clamp(torch.linalg.det(Bq / p[..., None, None]) / 2.0,
+                    -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    lam_min = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+
+    C = B - lam_min[..., None, None] * eye
+    cands = torch.stack([torch.linalg.cross(C[..., 0, :], C[..., 1, :]),
+                         torch.linalg.cross(C[..., 0, :], C[..., 2, :]),
+                         torch.linalg.cross(C[..., 1, :], C[..., 2, :])], -2)
+    norms = torch.linalg.vector_norm(cands, dim=-1)   # [..., 3]
+    best = torch.argmax(norms, -1)
+    v = torch.gather(cands, -2, best[..., None, None].expand(
+        *best.shape, 1, 3)).squeeze(-2)
+    ez = torch.tensor([0.0, 0.0, 1.0], dtype=B.dtype, device=B.device)
+    v = torch.where((torch.amax(norms, -1) > 1e-20)[..., None], v, ez)
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1,
+                                                    keepdim=True), min=1e-20)
+
+
+def eight_point(p1, p2):
+    """Normalized 8-point fundamental estimates from [..., 8, 2] point
+    pairs -> [..., 3, 3]: inverse iteration on A^T A (one Cholesky, two
+    deterministic starts, three iterations, the smaller Rayleigh quotient,
+    one polish), then the rank-2 projection F - (F v3) v3^T."""
+    n1, T1 = _normalize(p1)
+    n2, T2 = _normalize(p2)
+    x1, y1 = n1[..., 0], n1[..., 1]
+    x2, y2 = n2[..., 0], n2[..., 1]
+    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
+                     torch.ones_like(x1)], -1)          # [..., 8, 9]
+    M = A.transpose(-1, -2) @ A                        # [..., 9, 9]
+    eps = 1e-9 * torch.diagonal(M, dim1=-2, dim2=-1).sum(-1) + 1e-12
+    eye9 = torch.eye(9, dtype=M.dtype, device=M.device)
+    L, info = torch.linalg.cholesky_ex(M + eps[..., None, None] * eye9)
+    L = torch.where((info != 0)[..., None, None], math.nan, L)
+    X = torch.stack([torch.full((9,), 1.0 / 3.0),
+                     torch.tensor([1, -1, 1, -1, 1, -1, 1, -1, 1.0]) / 3.0],
+                    1).to(M)                           # [9, 2]
+    X = X.expand(*M.shape[:-2], 9, 2)
+    for _ in range(3):                                 # inverse iteration
+        X = torch.cholesky_solve(X, L)
+        X = X / torch.clamp(torch.linalg.vector_norm(X, dim=-2, keepdim=True),
+                            min=1e-30)
+    ray = torch.einsum("...ik,...ij,...jk->...k", X, M, X)   # [..., 2]
+    pick = torch.argmin(ray, -1)
+    x = torch.gather(X, -1, pick[..., None, None].expand(
+        *pick.shape, 9, 1))                            # [..., 9, 1]
+    x = torch.cholesky_solve(x, L)[..., 0]
+    x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
+                        min=1e-30)
+    F = x.reshape(*x.shape[:-1], 3, 3)
+    v3 = _smallest_eigvec3(F.transpose(-1, -2) @ F)
+    F = F - (F @ v3[..., None]) * v3[..., None, :]
+    return T2.transpose(-1, -2) @ F @ T1
+
+
+def draw_samples(n_valid, iters: int, generator: torch.Generator):
+    """[iters, 8] int64 sample ranks uniform in [0, max(n_valid, 8)), with
+    n_valid a device tensor (no host read)."""
+    u = torch.rand((iters, 8), generator=generator, device=n_valid.device)
+    hi = torch.clamp(n_valid, min=8)
+    return torch.minimum((u * hi.to(torch.float32)).to(torch.int64), hi - 1)
+
+
+def ransac_fundamental(p1, p2, valid, generator=None, *, iters: int = 256,
+                       thresh: float = 1.0, samples=None):
+    """Batched RANSAC: `iters` 8-point hypotheses evaluated at once.
+
+    p1, p2: [N,2] correspondences; valid: [N] bool. `samples` [iters, 8]
+    are ranks into the valid-first order of the correspondences (the
+    reference's `randint` draws); without them they are drawn from
+    `generator`. Returns (F [3,3], inlier_mask [N], n_inliers).
+    """
+    order = torch.argsort((~valid).to(torch.uint8), stable=True)
+    if samples is None:
+        if generator is None:
+            raise ValueError("ransac_fundamental needs a generator or samples")
+        samples = draw_samples(valid.sum(), iters, generator)
+    idx = order[samples.to(device=order.device, dtype=torch.int64)]
+    Fs = eight_point(p1[idx], p2[idx])                 # [iters, 3, 3]
+    d = epipolar_distance(Fs, p1, p2)                  # [iters, N]
+    inl = (d < thresh) & valid[None, :]
+    counts = torch.sum(inl.to(torch.int32), 1)
+    best = torch.argmax(counts).reshape(1)    # [1]: no host read
+    return (Fs.index_select(0, best)[0], inl.index_select(0, best)[0],
+            counts.index_select(0, best)[0])

@@ -1,0 +1,292 @@
+"""SSDLite-style 2-D object detector, VOC-21 contract (PyTorch, NCHW).
+
+Port of `sgslam_tpu/models/detector.py`: 300x300 input, 21 VOC classes,
+person = class 15, a normal confidence gate plus a much lower person gate
+that feeds the dynamic-feature cull. The shipped weights
+(`sgslam_tpu/assets/detector.npz`, 1.78 M parameters) load through
+`convert.detector_params_from_numpy`.
+
+What the flax model does that torch does not by default:
+- `nn.Conv(padding="SAME")` pads TF-style: a stride-2 3x3 conv on an even
+  input pads (0 before, 1 after). `_Conv` computes that padding per input
+  size; `padding=1` would shift the 300->150, 150->75 and 38->19 maps by a
+  pixel.
+- flax `GroupNorm` uses epsilon 1e-6 (torch's default is 1e-5).
+- The input resize is `jax.image.resize(..., "linear")`, which antialiases;
+  it reuses `ops.image._resize_weights`.
+- `lax.top_k` breaks ties toward the lower index, and most scores are
+  gated to exactly 0: `ops.orb.topk_stable`.
+The convolutions are cuDNN's (the reference's are XLA convolutions, not
+Pallas kernels).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import resolve_device
+from ..config import DetectorConfig
+from ..ops.image import _resize_weights
+from ..ops.orb import topk_stable
+from ..semantic.dynamic import Boxes
+
+VOC_CLASSES = (
+    "background", "aeroplane", "bicycle", "bird", "boat", "bottle", "bus",
+    "car", "cat", "chair", "cow", "diningtable", "dog", "horse", "motorbike",
+    "person", "pottedplant", "sheep", "sofa", "train", "tvmonitor")
+
+DYNAMIC_CLASSES = (3, 8, 10, 12, 13, 15, 17)  # bird cat cow dog horse person sheep
+
+GN_EPS = 1e-6          # flax.linen.GroupNorm's epsilon
+
+DETECTOR_ASSET = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "sgslam_tpu", "assets", "detector.npz")
+
+
+def same_padding(size: int, k: int, stride: int):
+    """TF/flax SAME padding (before, after) of one axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class _Conv(nn.Conv2d):
+    """Conv2d with flax's SAME padding, computed from the input size."""
+
+    def __init__(self, c_in, c_out, k, stride=1, groups=1, bias=True):
+        super().__init__(c_in, c_out, k, stride=stride, padding=0,
+                         groups=groups, bias=bias)
+
+    def forward(self, x):
+        k, s = self.kernel_size[0], self.stride[0]
+        top, bottom = same_padding(x.shape[-2], k, s)
+        left, right = same_padding(x.shape[-1], k, s)
+        return super().forward(F.pad(x, (left, right, top, bottom)))
+
+
+def _gn(ch):
+    return nn.GroupNorm(8, ch, eps=GN_EPS)
+
+
+class DWBlock(nn.Module):
+    """Inverted residual: 1x1 expand -> 3x3 depthwise -> 1x1 project."""
+
+    def __init__(self, ch_in: int, ch_out: int, stride: int = 1,
+                 expand: int = 4):
+        super().__init__()
+        mid = ch_in * expand
+        self.residual = stride == 1 and ch_in == ch_out
+        self.conv0 = _Conv(ch_in, mid, 1, bias=False)
+        self.gn0 = _gn(mid)
+        self.conv1 = _Conv(mid, mid, 3, stride=stride, groups=mid, bias=False)
+        self.gn1 = _gn(mid)
+        self.conv2 = _Conv(mid, ch_out, 1, bias=False)
+        self.gn2 = _gn(ch_out)
+
+    def forward(self, x):
+        h = F.relu(self.gn0(self.conv0(x)))
+        h = F.relu(self.gn1(self.conv1(h)))
+        h = self.gn2(self.conv2(h))
+        return h + x if self.residual else h
+
+
+# (ch_out, stride) of the eight blocks; the SSD heads read blocks 5 and 7
+_BLOCKS = ((64, 2), (64, 1), (128, 2), (128, 1), (128, 2), (128, 1),
+           (256, 2), (256, 1))
+
+
+class SSDLite(nn.Module):
+    """Backbone + two SSD heads. Input [B, 3, 300, 300] in [0,1]; returns
+    (boxes [B, A, 4], logits [B, A, classes])."""
+
+    def __init__(self, num_classes: int = 21, num_anchors: int = 6):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_anchors = num_anchors
+        self.stem = _Conv(3, 32, 3, stride=2, bias=False)        # 150
+        self.stem_gn = _gn(32)
+        blocks, ch = [], 32
+        for out, stride in _BLOCKS:     # 75, 75, 38, 38, 19, 19, 10, 10
+            blocks.append(DWBlock(ch, out, stride))
+            ch = out
+        self.blocks = nn.ModuleList(blocks)
+        self.box16 = _Conv(128, num_anchors * 4, 3)
+        self.cls16 = _Conv(128, num_anchors * num_classes, 3)
+        self.box32 = _Conv(256, num_anchors * 4, 3)
+        self.cls32 = _Conv(256, num_anchors * num_classes, 3)
+
+    def forward(self, x):
+        h = F.relu(self.stem_gn(self.stem(x)))
+        for i, blk in enumerate(self.blocks):
+            h = blk(h)
+            if i == 5:
+                f16 = h                                         # 19x19
+        f32 = h                                                 # 10x10
+        boxes, logits = [], []
+        for f, box, cls in ((f16, self.box16, self.cls16),
+                            (f32, self.box32, self.cls32)):
+            b = f.shape[0]
+            # NCHW -> the reference's NHWC anchor order
+            boxes.append(box(f).permute(0, 2, 3, 1).reshape(b, -1, 4))
+            logits.append(cls(f).permute(0, 2, 3, 1).reshape(
+                b, -1, self.num_classes))
+        return torch.cat(boxes, 1), torch.cat(logits, 1)
+
+
+def make_anchors(input_size: int = 300,
+                 feat_sizes: Sequence[int] = (19, 10),
+                 scales: Sequence[float] = (0.16, 0.45),
+                 ratios: Sequence[float] = (1.0, 2.0, 0.5)) -> np.ndarray:
+    """SSD anchors (cx, cy, w, h) normalized to [0,1]. [A_total, 4]."""
+    anchors = []
+    for fs, scale in zip(feat_sizes, scales):
+        s2 = math.sqrt(scale * min(1.0, scale * 2.0))
+        for iy in range(fs):
+            for ix in range(fs):
+                cx = (ix + 0.5) / fs
+                cy = (iy + 0.5) / fs
+                for r in ratios:
+                    sr = math.sqrt(r)
+                    anchors.append([cx, cy, scale * sr, scale / sr])
+                    anchors.append([cx, cy, s2 * sr, s2 / sr])
+    return np.asarray(anchors, np.float32)
+
+
+def decode_boxes(pred, anchors, variances=(0.1, 0.2)):
+    """SSD box decode -> (x1, y1, x2, y2) normalized."""
+    cxy = anchors[:, :2] + pred[:, :2] * variances[0] * anchors[:, 2:]
+    wh = anchors[:, 2:] * torch.exp(torch.clamp(pred[:, 2:] * variances[1],
+                                                -4.0, 4.0))
+    return torch.cat([cxy - wh / 2, cxy + wh / 2], -1)
+
+
+def _iou(a, b):
+    """a [N,4], b [M,4] -> [N,M]."""
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    return inter / torch.clamp(area_a[:, None] + area_b[None, :] - inter,
+                               min=1e-9)
+
+
+def nms_topk(boxes, scores, cls, k: int, iou_thresh: float = 0.45,
+             pool: int = 128):
+    """Fixed-shape greedy class-aware NMS: the `pool` best candidates
+    (ties toward the lower index) -> `k` picks, by k argmax+suppress steps
+    on the device (no host read). Returns (out_idx [k] int64, out_ok [k])."""
+    top_s, top_i = topk_stable(scores, pool)
+    b = boxes[top_i]
+    c = cls[top_i]
+    alive = top_s > 0.0
+    iou = _iou(b, b)
+    suppressor = (iou > iou_thresh) & (c[:, None] == c[None, :])
+    out_idx, out_ok = [], []
+    for _ in range(k):
+        s = torch.where(alive, top_s, -1.0)
+        # a [1] index: indexing with a 0-dim tensor reads it on the host
+        j = torch.argmax(s).reshape(1)
+        out_ok.append(s.index_select(0, j) > 0.0)
+        out_idx.append(top_i.index_select(0, j))
+        alive = alive & ~suppressor.index_select(0, j)[0]
+        alive = alive.index_fill(0, j, False)
+    return torch.cat(out_idx), torch.cat(out_ok)
+
+
+def load_detector_npz(path: str = DETECTOR_ASSET):
+    """The flax-flattened weights of a detector `.npz` as float32 numpy
+    arrays, or None if the file does not exist."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        return {k: z[k].astype(np.float32) for k in z.files}
+
+
+def default_detector_params():
+    """The packaged trained weights as an `SSDLite` state dict, or None."""
+    from ..convert import detector_params_from_numpy
+
+    flat = load_detector_npz()
+    return None if flat is None else detector_params_from_numpy(flat)
+
+
+class Detector2D:
+    """Host facade with the reference Detector2D's output contract.
+
+    params: an `SSDLite` state dict (default: the shipped weights); with
+    `pretrained=False` and no params, the weights are torch's random
+    initialization from `seed`."""
+
+    def __init__(self, cfg: DetectorConfig, params=None,
+                 pretrained: bool = True, seed: int = 0, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.model = SSDLite(num_classes=cfg.num_classes)
+        if params is None and pretrained:
+            params = default_detector_params()
+        if params is not None:
+            self.model.load_state_dict(params)
+        self.model = self.model.to(self.device).eval()
+        self.anchors = torch.from_numpy(make_anchors(cfg.input_size)).to(
+            self.device)
+
+    @torch.no_grad()
+    def raw(self, rgb):
+        """rgb [H,W,3] -> (box_pred [A,4], logits [A,classes]) of the
+        resized image."""
+        n = self.cfg.input_size
+        img = torch.as_tensor(rgb, dtype=torch.float32, device=self.device)
+        wh = _resize_weights(img.shape[0], n, self.device)     # [H, n]
+        ww = _resize_weights(img.shape[1], n, self.device)     # [W, n]
+        chw = img.permute(2, 0, 1)
+        x = (wh.T @ chw) @ ww                                  # [3, n, n]
+        box_pred, logits = self.model(x[None])
+        return box_pred[0], logits[0]
+
+    @torch.no_grad()
+    def detect_normalized(self, rgb):
+        """(boxes [max_boxes,4] in [0,1], cls, score, ok) after NMS."""
+        cfg = self.cfg
+        box_pred, logits = self.raw(rgb)
+        boxes = decode_boxes(box_pred, self.anchors)
+        probs = torch.softmax(logits, -1)
+        # best non-background class per anchor (first maximum)
+        score = torch.amax(probs[:, 1:], -1)
+        cls = (torch.argmax(probs[:, 1:], -1) + 1).to(torch.int32)
+        low_gate = torch.where(cls == cfg.person_class,
+                               cfg.dynamic_conf_threshold, cfg.conf_threshold)
+        score = torch.where(score > low_gate, score, 0.0)
+        idx, ok = nms_topk(boxes, score, cls, cfg.max_boxes)
+        return (torch.clamp(boxes[idx], 0.0, 1.0), cls[idx], score[idx], ok)
+
+    def detect(self, rgb, image_w: int, image_h: int):
+        """rgb [H,W,3] float in [0,1] -> (all_boxes, person_boxes_for_cull,
+        dynamic_boxes_for_mapping, objects_2d) as `Boxes` in pixel coords
+        (Detector2D::detect's four lists)."""
+        xyxy, cls, score, valid = self.detect_normalized(rgb)
+        scale = torch.tensor([image_w, image_h, image_w, image_h],
+                             dtype=torch.float32, device=self.device)
+        px = xyxy * scale[None, :]
+        c = self.cfg
+        is_person = cls == c.person_class
+        keep_any = valid & ((score > c.conf_threshold)
+                            | (is_person & (score > c.dynamic_conf_threshold)))
+        all_boxes = Boxes(px, cls, score, keep_any)
+        person_cull = Boxes(px, cls, score, keep_any & is_person
+                            & (score > c.person_box_conf_for_culling))
+        person_map = Boxes(px, cls, score, keep_any & is_person)
+        objects2d = Boxes(px, cls, score, keep_any & ~is_person
+                          & (score > c.conf_threshold))
+        return all_boxes, person_cull, person_map, objects2d

@@ -1,4 +1,5 @@
-"""Image primitives: separable Gaussian blur, resize, batched patch gather.
+"""Image primitives: separable Gaussian blur, resize, batched patch gather,
+bilinear sampling.
 
 Port of `sgslam_tpu/ops/image.py`.
 
@@ -122,3 +123,22 @@ def gather_patches(img, centers, radius: int):
     cols = cx[:, None, None] + off[None, None, :]          # [N, 1, size]
     return img.reshape(-1)[(rows * w + cols).reshape(-1)].reshape(
         -1, size, size)
+
+
+def bilinear_sample(img, xy):
+    """Sample img [H,W] at float coords xy [...,2] with bilinear interp.
+
+    Out-of-bounds clamps to border. Used by LK flow."""
+    h, w = img.shape
+    x = torch.clamp(xy[..., 0], 0.0, w - 1.001)
+    y = torch.clamp(xy[..., 1], 0.0, h - 1.001)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    fx = x - x0
+    fy = y - y0
+    v00 = img[y0, x0]
+    v01 = img[y0, x0 + 1]
+    v10 = img[y0 + 1, x0]
+    v11 = img[y0 + 1, x0 + 1]
+    return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
+            + fy * ((1 - fx) * v10 + fx * v11))

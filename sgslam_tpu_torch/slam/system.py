@@ -1,0 +1,238 @@
+"""System facade: the RGB-D semantic SLAM engine.
+
+Port of `sgslam_tpu/slam/system.py` without loop closing: per frame, the
+2-D detector, ORB extraction, the dynamic-feature cull (box-only before
+the map exists, then ORB correspondences + F-RANSAC + epipolar test),
+tracking with the keyframe back-end, and on keyframes the semantic mapper.
+The public API is the reference's: `track_rgbd`, trajectory savers, reset,
+shutdown, localization mode, checkpoints.
+
+Loop closing and relocalization (`enable_loop=True`) wait for their slice
+(ROADMAP item 11) and raise; so do `track_stereo`, `track_monocular` and
+`monocular` (item 13). Entry points run on `device` ("cuda" by default).
+
+`on_stage(name)`, if set, is called with "begin" at the start of
+`track_rgbd` and after each of its stages ("detector", "extract", "cull",
+"track", and "mapping" on keyframes), for timing with device events; it
+must not touch the state.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..config import SlamConfig
+from ..io import trajectory as traj_io
+from ..mapping.semantic_mapper import SemanticMapper
+from ..semantic import dynamic as dyn_mod
+from ..semantic.dynamic import Boxes
+from ..utils.timing import Metrics
+from . import tracking
+from .tracking import _as_tensor
+
+_NOT_PORTED = ("not ported yet: loop closing and relocalization are "
+               "ROADMAP item 11 of the PyTorch port")
+
+
+class System:
+    def __init__(self, cfg: SlamConfig, vocab=None, *,
+                 enable_semantic: bool = True, enable_loop: bool = True,
+                 enable_mapping: bool = True, detector=None, device="cuda",
+                 sampler=None):
+        if enable_loop:
+            raise NotImplementedError(
+                "System(enable_loop=True): " + _NOT_PORTED
+                + "; pass enable_loop=False")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.tracker = tracking.Tracker(cfg, device=self.device)
+        self.loop = None
+        self.mapper = (SemanticMapper(cfg, device=self.device)
+                       if enable_mapping else None)
+        self.enable_semantic = enable_semantic and cfg.dynamic.enabled
+        self.detector = detector
+        if enable_semantic and detector is None and cfg.detector.enabled:
+            from ..models.detector import Detector2D
+
+            self.detector = Detector2D(cfg.detector, device=self.device)
+
+        # `sampler` replaces the F-RANSAC draws (tests replay the
+        # reference's); by default a generator seeded like the reference
+        self._sampler = sampler
+        self.frontend = dyn_mod.SemanticFrontend(cfg, seed=7,
+                                                 device=self.device,
+                                                 sampler=sampler)
+        self.last_feats = None
+        self.person_cull_boxes = Boxes.empty(cfg.detector.max_boxes,
+                                             self.device)
+        self.object_boxes = None
+        self.timestamps: list[float] = []
+        self.metrics = Metrics()
+        self.on_stage = None
+
+    def _mark(self, name: str):
+        if self.on_stage is not None:
+            self.on_stage(name)
+
+    # ------------------------------------------------------------------
+    def track_rgbd(self, gray, depth, rgb=None,
+                   timestamp: Optional[float] = None) -> np.ndarray:
+        """Main per-frame API (System::TrackRGBD contract). gray, depth
+        [H,W] and rgb [H,W,3] float32 (numpy or tensors). Returns Tcw [7]."""
+        cfg = self.cfg
+        dev = self.device
+        gray = _as_tensor(gray, dev)
+        depth = _as_tensor(depth, dev)
+        self.timestamps.append(
+            timestamp if timestamp is not None
+            else len(self.timestamps) / cfg.fps)
+        self._mark("begin")
+
+        # 2-D detection on the current frame
+        if self.detector is not None and rgb is not None:
+            with self.metrics.timer("detector"):
+                (_, person_cull, person_map,
+                 objects2d) = self.detector.detect(
+                    _as_tensor(rgb, dev), cfg.camera.width, cfg.camera.height)
+            self.person_cull_boxes = person_cull
+            self.object_boxes = objects2d
+            dynamic_boxes = person_map
+        else:
+            dynamic_boxes = Boxes.empty(cfg.detector.max_boxes, dev)
+        self._mark("detector")
+
+        with self.metrics.timer("extract"):
+            feats = tracking.extract_frame(cfg, gray, depth, dev)
+        feats_raw = feats   # pre-cull block: next frame's match target
+        self._mark("extract")
+
+        # semantic + geometric dynamic rejection
+        if self.enable_semantic:
+            with self.metrics.timer("dynamic_cull"):
+                # the init-frame box-only cull needs real detections;
+                # oracle-box tests inject boxes only after initialization
+                init_done = (self.tracker.state != "NOT_INITIALIZED"
+                             or self.detector is None)
+                feats = self.frontend.cull(gray, feats,
+                                           self.person_cull_boxes,
+                                           map_initialized=init_done)
+        self._mark("cull")
+
+        with self.metrics.timer("track"):
+            Tcw = self.tracker.process(gray, depth, feats=feats)
+        self.last_feats = feats   # post-cull features
+        self._mark("track")
+
+        # lost right after init with a tiny map: full reset
+        # (Tracking.cc:513-521 "Track lost soon after initialisation")
+        if self.tracker.state == "LOST" and self.tracker.n_kf <= 5:
+            self.reset()
+            return Tcw
+
+        # keyframe side effect: semantic mapping
+        if self.tracker.kf_inserted:
+            self.metrics.count("keyframes")
+            if self.mapper is not None:
+                with self.metrics.timer("mapping"):
+                    self.mapper.insert_keyframe(
+                        gray, depth, self.tracker.Tcw, dynamic_boxes,
+                        self.object_boxes)
+                self._mark("mapping")
+
+        self.frontend.push(gray, feats_raw, dynamic_boxes)
+        return Tcw
+
+    # oracle-box injection hooks (tests drive the cull without a detector)
+    @property
+    def prev_dynamic_boxes(self):
+        return self.frontend.prev_boxes
+
+    @prev_dynamic_boxes.setter
+    def prev_dynamic_boxes(self, boxes):
+        self.frontend.prev_boxes = boxes
+
+    @property
+    def prev_feats(self):
+        return self.frontend.prev_feats
+
+    # ------------------------------------------------------------------
+    def track_stereo(self, gray_l, gray_r, rgb=None) -> np.ndarray:
+        raise NotImplementedError(
+            "System.track_stereo: not ported yet (ROADMAP item 13)")
+
+    def track_monocular(self, gray) -> np.ndarray:
+        raise NotImplementedError(
+            "System.track_monocular: not ported yet (ROADMAP item 13)")
+
+    @classmethod
+    def monocular(cls, cfg: SlamConfig, **kw):
+        raise NotImplementedError(
+            "System.monocular: not ported yet (ROADMAP item 13)")
+
+    @property
+    def state(self):
+        return self.tracker.state
+
+    def activate_localization_mode(self):
+        """Freeze the map and only track (System.cc:345-349)."""
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        """Resume full SLAM: keyframe insertion + mapping."""
+        self.tracker.only_tracking = False
+
+    def shutdown(self):
+        """System::Shutdown contract: the stages are host calls around
+        device work, so shutdown waits for the device."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def reset(self):
+        """System::Reset contract: drop map + trajectory, keep config."""
+        self.__init__(self.cfg, enable_semantic=self.enable_semantic,
+                      enable_loop=False,
+                      enable_mapping=self.mapper is not None,
+                      detector=self.detector, device=self.device,
+                      sampler=self._sampler)
+
+    # -- map checkpoint / resume (without the place-recognition database,
+    #    which comes with loop closing) --
+    def save_checkpoint(self, path: str):
+        """Persist the full map; a saved checkpoint reopens in
+        localization-only mode (or resumes mapping)."""
+        from ..io import checkpoint as ckpt
+
+        extra = {"Tcw": self.tracker.Tcw.cpu().numpy(),
+                 "frame_id": np.asarray(self.tracker.frame_id)}
+        ckpt.save_map(path, self.tracker.map, extra)
+
+    def load_checkpoint(self, path: str, localization_only: bool = True):
+        """Restore a saved map; the tracker starts LOST."""
+        from ..io import checkpoint as ckpt
+
+        m, _ = ckpt.load_map(path, device=self.device)
+        self.tracker.map = m
+        self.tracker.n_kf = int(m.kf_valid.sum())
+        self.tracker.last_kf_id = int(m.next_kf) - 1
+        self.tracker.state = "LOST"
+        if localization_only:
+            self.activate_localization_mode()
+
+    def save_trajectory_tum(self, path: str):
+        traj_io.save_tum(path, self.timestamps, self.tracker.poses_cw())
+
+    def save_trajectory_kitti(self, path: str):
+        traj_io.save_kitti(path, self.tracker.poses_cw())
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        m = self.tracker.map
+        valid = m.kf_valid.cpu().numpy()
+        poses = m.kf_pose.cpu().numpy()[valid]
+        fids = m.kf_frame_id.cpu().numpy()[valid]
+        ts = [self.timestamps[min(f, len(self.timestamps) - 1)]
+              for f in fids]
+        traj_io.save_tum(path, ts, poses)

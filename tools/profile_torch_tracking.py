@@ -1,10 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's tracking path and keyframe back-end on
-the GPU.
+"""Where the time goes in the port's tracking path, keyframe back-end and
+semantic system on the GPU.
 
-    python tools/profile_torch_tracking.py [--frames 60] [--window 10]
-                                           [--passes 3]
+    python tools/profile_torch_tracking.py [tracking] [--frames 60]
+                                           [--window 10] [--passes 3]
+    python tools/profile_torch_tracking.py system [--frames 60] [--window 10]
 
+`system` drives the first `--frames` frames of chip_smoke.py's phase-7
+sequence (640x480, three walkers, fast rotation, 150 frames) through `System(cfg, enable_loop=False).track_rgbd` with
+the detector, the cull, the back-end and the mapper, then profiles the last
+`--window` frames of `track_rgbd` as a whole, and each stage on its own on
+those frames: the detector, `extract_frame`, the dynamic cull (against
+the previous frame) and the mapper's keyframe insertion (three frames, a
+fresh mapper). Output: build/profile_torch_system.json.
+
+Without a mode:
 Tracks the full-width synthetic sequence (640x480, 1000 features, 1024
 keypoints, 4096 local points) with `sgslam_tpu_torch` and the back-end off,
 then re-runs a window of frames under `torch.profiler` twice: once around
@@ -38,8 +48,11 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from sgslam_tpu_torch import config  # noqa: E402
 from sgslam_tpu_torch.io import checkpoint, synthetic  # noqa: E402
+from sgslam_tpu_torch.mapping.semantic_mapper import SemanticMapper  # noqa: E402
 from sgslam_tpu_torch.ops import hamming_cuda  # noqa: E402
+from sgslam_tpu_torch.semantic.dynamic import SemanticFrontend  # noqa: E402
 from sgslam_tpu_torch.slam import tracking  # noqa: E402
+from sgslam_tpu_torch.slam.system import System  # noqa: E402
 
 
 def _kernel_stats(prof):
@@ -79,18 +92,101 @@ def _profiled(fn, n_frames):
     }
 
 
+def _smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "--id=0"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip()
+
+
+def _print_stage(name, r, unit="frame"):
+    print(f"[profile] {name}: wall {r['wall_ms_per_frame']:.3f} "
+          f"ms/{unit}, device {r['device_ms_per_frame']:.3f} ms/{unit}, "
+          f"idle {100 * r['device_idle_share']:.1f}%, "
+          f"{r['kernel_launches_per_frame']:.0f} kernels/{unit}, K1 "
+          f"{r['k1_us_per_frame']:.1f} us/{unit}")
+    for k in r["top_kernels"][:5]:
+        print(f"    {k['us_per_frame']:9.1f} us/{unit} "
+              f"{k['calls_per_frame']:6.1f}x  {k['name']}")
+
+
+def profile_system(args, dev) -> int:
+    cfg = chip_smoke.semantic_config()
+    w, h = cfg.camera.width, cfg.camera.height
+    seq = chip_smoke.semantic_sequence(cfg, dev)     # the 150-frame walk
+    frames = [seq.frame(i) for i in range(args.frames)]
+    rgb = chip_smoke._rgb
+    s = System(cfg, enable_loop=False, device=dev)
+    start = args.frames - args.window
+    for g, d in frames[:start]:
+        s.track_rgbd(g, d, rgb=rgb(g))
+    window = frames[start:]
+    n = len(window)
+
+    hamming_cuda.hamming_kernel.launches = 0
+    kf0 = s.tracker.n_kf
+    result = {"whole track_rgbd": _profiled(
+        lambda: [s.track_rgbd(g, d, rgb=rgb(g)) for g, d in window], n)}
+    k1_per_frame = hamming_cuda.hamming_kernel.launches / n
+    keyframes = s.tracker.n_kf - kf0
+
+    result["detector"] = _profiled(
+        lambda: [s.detector.detect(rgb(g), w, h) for g, _ in window], n)
+    result["extract_frame"] = _profiled(
+        lambda: [tracking.extract_frame(cfg, g, d, dev) for g, d in window],
+        n)
+    feats = [tracking.extract_frame(cfg, g, d, dev) for g, d in window]
+    boxes = [s.detector.detect(rgb(g), w, h) for g, _ in window]
+    fe = SemanticFrontend(cfg, seed=7, device=dev)
+
+    def run_cull():
+        for i in range(1, n):
+            fe.push(window[i - 1][0], feats[i - 1], boxes[i - 1][2])
+            fe.cull(window[i][0], feats[i], boxes[i][1], True)
+
+    result["cull"] = _profiled(run_cull, n - 1)
+    mapper = SemanticMapper(cfg, device=dev)
+    result["mapping (keyframe insertion)"] = _profiled(
+        lambda: [mapper.insert_keyframe(g, d, s.tracker.Tcw, boxes[i][2],
+                                        boxes[i][3])
+                 for i, (g, d) in enumerate(window[:3])], 3)
+    smi = _smi()
+    out = {"device": smi, "torch": torch.__version__, "window_frames": n,
+           "frame_range": [start, args.frames],
+           "keyframes_in_window": keyframes,
+           "k1_launches_per_frame": k1_per_frame, "state": s.state,
+           "stages": result}
+    path = args.out or "build/profile_torch_system.json"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"[profile] system window: frames {start}-{args.frames}, "
+          f"{keyframes} keyframes, K1 {k1_per_frame:.2f} launches/frame, "
+          f"state {s.state}")
+    for name, r in result.items():
+        _print_stage(name, r)
+    print(json.dumps({"device": smi, "k1_launches_per_frame": k1_per_frame}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("mode", nargs="?", default="tracking",
+                    choices=["tracking", "system"])
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--window", type=int, default=10)
     ap.add_argument("--passes", type=int, default=3)
-    ap.add_argument("--out", default="build/profile_torch_tracking.json")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_tracking: needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.mode == "system":
+        return profile_system(args, dev)
+    args.out = args.out or "build/profile_torch_tracking.json"
 
     cfg = config.synthetic_config(640, 480)
     seq = synthetic.SyntheticSequence(cfg.camera, n_frames=args.frames,
@@ -132,10 +228,7 @@ def main() -> int:
                                     device=dev)
     backend_eval = backend(chip_smoke.eval_config(), m_eval,
                            int(torch.nonzero(m_eval.kf_valid).max()))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "--id=0"],
-                         capture_output=True, text=True, check=True,
-                         timeout=60).stdout.strip()
+    smi = _smi()
     repeat_diff = float(abs(tr.poses_cw() - first.poses_cw()).max())
     result = {"device": smi, "torch": torch.__version__,
               "repeat_pose_max_abs_diff": repeat_diff,
@@ -152,16 +245,8 @@ def main() -> int:
     # the "_per_frame" keys of the back-end entries are per pass
     for name in ("extract_frame", "track", "backend_pass_main_map",
                  "backend_pass_eval_map"):
-        r = result[name]
-        unit = "pass" if name.startswith("backend") else "frame"
-        print(f"[profile] {name}: wall {r['wall_ms_per_frame']:.3f} "
-              f"ms/{unit}, device {r['device_ms_per_frame']:.3f} ms/{unit}, "
-              f"idle {100 * r['device_idle_share']:.1f}%, "
-              f"{r['kernel_launches_per_frame']:.0f} kernels/{unit}, K1 "
-              f"{r['k1_us_per_frame']:.1f} us/{unit}")
-        for k in r["top_kernels"][:5]:
-            print(f"    {k['us_per_frame']:9.1f} us/{unit} "
-                  f"{k['calls_per_frame']:6.1f}x  {k['name']}")
+        _print_stage(name, result[name],
+                     "pass" if name.startswith("backend") else "frame")
     print(f"[profile] second pass vs first: poses differ by at most "
           f"{repeat_diff:.3g}")
     print(json.dumps({"device": smi, "k1_launches_per_frame":
