@@ -116,3 +116,76 @@ def detector_params_from_numpy(flat: dict) -> dict:
             x = x.transpose(3, 2, 0, 1)
         out[f"{module}.{name}"] = torch.from_numpy(np.ascontiguousarray(x))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Loop closing and the chunked pipeline
+# ---------------------------------------------------------------------------
+
+def vocab_from_numpy(level_desc, word_idf, device="cpu"):
+    """The reference's `Vocabulary` fields (uint32 level arrays, idf) -> the
+    port's `Vocabulary`."""
+    from .models.vocab import _from_arrays
+
+    return _from_arrays([np.asarray(d) for d in level_desc],
+                        np.asarray(word_idf), device)
+
+
+def vocab_to_numpy(vocab) -> dict:
+    return {"level_desc": [d.cpu().numpy().view(np.uint32)
+                           for d in vocab.level_desc],
+            "word_idf": vocab.word_idf.cpu().numpy()}
+
+
+def loop_state_to_numpy(loop) -> dict:
+    """A `LoopCloser`'s database and bookkeeping (either package's) as
+    numpy arrays and plain Python values."""
+    return {"bow_db": np.asarray(_np(loop.bow_db)),
+            "db_valid": np.asarray(_np(loop.db_valid)),
+            "loop_edges": [(int(i), int(j), np.asarray(_np(s), np.float32))
+                           for i, j, s in loop.loop_edges],
+            "_consistency": {int(k): int(v)
+                             for k, v in loop._consistency.items()},
+            "loops_closed": [(int(i), int(j)) for i, j in loop.loops_closed]}
+
+
+def loop_state_from_numpy(loop, state: dict):
+    """Install `loop_state_to_numpy`'s output into the port's `LoopCloser`."""
+    loop.bow_db = torch.as_tensor(np.array(state["bow_db"], np.float32),
+                                  device=loop.device)
+    loop.db_valid = torch.as_tensor(np.array(state["db_valid"], bool),
+                                    device=loop.device)
+    loop.loop_edges = [(i, j, np.asarray(s, np.float32))
+                       for i, j, s in state["loop_edges"]]
+    loop._consistency = dict(state["_consistency"])
+    loop.loops_closed = list(state["loops_closed"])
+    return loop
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def sim3_from_numpy(table, device="cpu") -> torch.Tensor:
+    """A Sim(3) table [..., 8] (qw, qx, qy, qz, tx, ty, tz, s) as float32."""
+    return torch.as_tensor(np.array(table, np.float32), device=device)
+
+
+def track_carry_from_numpy(arrays: dict, device="cpu", key=None):
+    """The reference's `TrackCarry` (fields as numpy; `prev_feats` and
+    `prev_boxes` as dicts) -> the port's. The PRNG key is opaque to the
+    port: `key` replaces it (for example with a test's replaying key), else
+    the reference's key array is kept as it is."""
+    from .slam.scan_pipeline import TrackCarry
+
+    i32 = dict(dtype=torch.int32, device=device)
+    return TrackCarry(
+        Tcw=sim3_from_numpy(arrays["Tcw"], device),
+        velocity=sim3_from_numpy(arrays["velocity"], device),
+        since_kf=torch.as_tensor(np.asarray(arrays["since_kf"]), **i32),
+        ref_matches=torch.as_tensor(np.asarray(arrays["ref_matches"]),
+                                    **i32),
+        frame_id=int(np.asarray(arrays["frame_id"])),
+        prev_feats=features_from_numpy(arrays["prev_feats"], device),
+        prev_boxes=boxes_from_numpy(arrays["prev_boxes"], device),
+        key=arrays["key"] if key is None else key)

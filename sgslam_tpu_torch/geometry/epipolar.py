@@ -127,12 +127,27 @@ def eight_point(p1, p2):
     return T2.transpose(-1, -2) @ F @ T1
 
 
-def draw_samples(n_valid, iters: int, generator: torch.Generator):
-    """[iters, 8] int64 sample ranks uniform in [0, max(n_valid, 8)), with
-    n_valid a device tensor (no host read)."""
-    u = torch.rand((iters, 8), generator=generator, device=n_valid.device)
-    hi = torch.clamp(n_valid, min=8)
+def draw_ranks(n_valid, iters: int, k: int, generator: torch.Generator):
+    """[iters, k] int64 sample ranks uniform in [0, max(n_valid, k)), with
+    n_valid a device tensor (no host read): the shape of the reference's
+    `randint(key, (iters, k), 0, max(n_valid, k))`."""
+    u = torch.rand((iters, k), generator=generator, device=n_valid.device)
+    hi = torch.clamp(n_valid, min=k)
     return torch.minimum((u * hi.to(torch.float32)).to(torch.int64), hi - 1)
+
+
+def seeded_ranks(seed: int, n_valid, iters: int, k: int):
+    """`draw_ranks` from a fresh generator on n_valid's device seeded with
+    `seed` (the reference's key seed): the default Sim3 / PnP RANSAC draws
+    and the chunk's per-frame F-RANSAC draws."""
+    gen = torch.Generator(device=n_valid.device)
+    gen.manual_seed(int(seed))
+    return draw_ranks(n_valid, iters, k, gen)
+
+
+def draw_samples(n_valid, iters: int, generator: torch.Generator):
+    """[iters, 8] ranks for the 8-point RANSAC (`draw_ranks`)."""
+    return draw_ranks(n_valid, iters, 8, generator)
 
 
 def ransac_fundamental(p1, p2, valid, generator=None, *, iters: int = 256,

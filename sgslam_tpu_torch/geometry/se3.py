@@ -1,13 +1,17 @@
-"""SE(3) Lie-group operations as batched tensor functions.
+"""SE(3) / Sim(3) Lie-group operations as batched tensor functions.
 
-Port of the quaternion and SE(3) half of `sgslam_tpu/geometry/se3.py`, with
-the same layouts (all broadcastable over leading batch dims):
+Port of `sgslam_tpu/geometry/se3.py`, with the same layouts (all
+broadcastable over leading batch dims):
   quaternion  q : [..., 4]  (w, x, y, z), unit norm
   SE3   pose  T : [..., 7]  = (qw, qx, qy, qz, tx, ty, tz)
+  Sim3  pose  S : [..., 8]  = (qw, qx, qy, qz, tx, ty, tz, s)
   se3  twist xi : [..., 6]  = (v, w)   translation part first (g2o convention)
+  sim3 twist    : [..., 7]  = (v, w, sigma)
 
 The Taylor guards and their thresholds are the reference's, so both packages
-switch branches at the same angles. Sim(3) waits for the loop-closing slice.
+switch branches at the same angles. `sim3_log` rebuilds W from `sim3_exp` on
+the basis vectors and solves W v = t, as the reference does, so that the two
+round alike.
 """
 
 from __future__ import annotations
@@ -246,3 +250,103 @@ def se3_to_matrix(T):
 
 def se3_from_matrix(m):
     return se3_make(mat_to_quat(m[..., :3, :3]), m[..., :3, 3])
+
+
+# ---------------------------------------------------------------------------
+# Sim(3):  S = (q, t, s),  x -> s R x + t   (loop closing, essential graph)
+# ---------------------------------------------------------------------------
+
+def sim3_identity(dtype=torch.float32, device=None):
+    return torch.tensor([1, 0, 0, 0, 0, 0, 0, 1], dtype=dtype, device=device)
+
+
+def sim3_make(q, t, s):
+    return torch.cat([q, t, s[..., None] if s.dim() < q.dim() else s], dim=-1)
+
+
+def sim3_scale(S):
+    return S[..., 7]
+
+
+def sim3_apply(S, x):
+    return S[..., 7:8] * quat_rotate(S[..., :4], x) + S[..., 4:7]
+
+
+def sim3_compose(A, B):
+    q = quat_normalize(quat_mul(A[..., :4], B[..., :4]))
+    t = A[..., 7:8] * quat_rotate(A[..., :4], B[..., 4:7]) + A[..., 4:7]
+    s = A[..., 7:8] * B[..., 7:8]
+    return torch.cat([q, t, s], dim=-1)
+
+
+def sim3_inverse(S):
+    qi = quat_conj(S[..., :4])
+    si = 1.0 / torch.clamp(S[..., 7:8], min=_EPS)
+    ti = -si * quat_rotate(qi, S[..., 4:7])
+    return torch.cat([qi, ti, si], dim=-1)
+
+
+def sim3_from_se3(T, s=None):
+    s = (torch.ones(T.shape[:-1] + (1,), dtype=T.dtype, device=T.device)
+         if s is None else s)
+    return torch.cat([T[..., :4], T[..., 4:7], s], dim=-1)
+
+
+def sim3_to_se3(S):
+    """Drop the scale (the translation is not divided; the caller decides)."""
+    return S[..., :7]
+
+
+def sim3_exp(xi):
+    """sim3 twist [..., 7] = (v, w, sigma) -> Sim3 [..., 8]; t = W v with W
+    from Strasdat's appendix, guarded for small theta and small sigma."""
+    v, w, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6:7]
+    s = torch.exp(sigma)
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp(theta2, min=0.0))
+    wx = hat(w)
+    wx2 = torch.einsum("...ij,...jk->...ik", wx, wx)
+
+    eps = 1e-5
+    sig_small = torch.abs(sigma) < eps
+    th_small = theta < eps
+    sig_safe = torch.where(sig_small, torch.ones_like(sigma), sigma)
+    th_safe = torch.where(th_small, torch.ones_like(theta), theta)
+
+    A = torch.where(sig_small, 1.0 + sigma / 2.0 + sigma * sigma / 6.0,
+                    (s - 1.0) / sig_safe)
+    a_ = s * torch.sin(theta)
+    b_ = s * torch.cos(theta)
+    den = torch.clamp(sigma * sigma + theta2, min=_EPS)
+    B_gen = (a_ * sigma + (1.0 - b_) * th_safe) / (th_safe * den)
+    C_gen = (A - ((b_ - 1.0) * sigma + a_ * th_safe) / den) \
+        / torch.clamp(theta2, min=_EPS)
+    _, b0, c0 = _rot_coeffs(theta2)
+    B_th0 = torch.where(sig_small, b0,
+                        ((sig_safe - 1.0) * s + 1.0) / (sig_safe * sig_safe))
+    C_th0 = torch.where(
+        sig_small, c0,
+        (s * (0.5 * sig_safe * sig_safe - sig_safe + 1.0) - 1.0)
+        / (sig_safe * sig_safe * sig_safe))
+    B = torch.where(th_small, B_th0, torch.where(sig_small, b0, B_gen))
+    C = torch.where(th_small, C_th0, torch.where(sig_small, c0, C_gen))
+
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(wx.shape)
+    W = A[..., None] * eye + B[..., None] * wx + C[..., None] * wx2
+    t = torch.einsum("...ij,...j->...i", W, v)
+    return torch.cat([so3_exp_quat(w), t, s], dim=-1)
+
+
+def sim3_log(S):
+    """Sim3 -> twist (v, w, sigma), the inverse of `sim3_exp`."""
+    w = so3_log(S[..., :4])
+    s = S[..., 7:8]
+    sigma = torch.log(torch.clamp(s, min=_EPS))
+    eye = torch.eye(3, dtype=S.dtype, device=S.device)
+    cols = []
+    for i in range(3):
+        e = eye[i].expand(w.shape)
+        cols.append(sim3_exp(torch.cat([e, w, sigma], dim=-1))[..., 4:7])
+    W = torch.stack(cols, dim=-1)          # [..., 3, 3], W e_i as columns
+    v = torch.linalg.solve(W, S[..., 4:7, None])[..., 0]
+    return torch.cat([v, w, sigma], dim=-1)

@@ -271,6 +271,47 @@ class Detector2D:
         idx, ok = nms_topk(boxes, score, cls, cfg.max_boxes)
         return (torch.clamp(boxes[idx], 0.0, 1.0), cls[idx], score[idx], ok)
 
+    @torch.no_grad()
+    def detect_batch(self, grays, image_w: int, image_h: int):
+        """A chunk's detections (the reference's `detect_batch` of
+        `scan_pipeline.make_track_chunk`): grays [n, H, W] -> the
+        antialiased linear resize to the input size, one SSDLite forward
+        over the batch, then per frame the decode, the person / object
+        gates and `nms_topk`. Returns (cull, dynamic, objects) `Boxes` with
+        [n, max_boxes] fields in pixel coordinates."""
+        c = self.cfg
+        s = c.input_size
+        g = grays.to(device=self.device, dtype=torch.float32)
+        wh = _resize_weights(g.shape[1], s, self.device)         # [H, s]
+        ww = _resize_weights(g.shape[2], s, self.device)         # [W, s]
+        imgs = (wh.T @ g) @ ww                                    # [n, s, s]
+        box_pred, logits = self.model(imgs[:, None].expand(-1, 3, -1, -1))
+        scale = torch.tensor([image_w, image_h, image_w, image_h],
+                             dtype=torch.float32, device=self.device)
+        out = ([], [], [])
+        for bp, lg in zip(box_pred, logits):
+            boxes = decode_boxes(bp, self.anchors)
+            probs = torch.softmax(lg, -1)
+            cls = (torch.argmax(probs[:, 1:], -1) + 1).to(torch.int32)
+            score = torch.amax(probs[:, 1:], -1)
+            low = torch.where(cls == c.person_class,
+                              c.dynamic_conf_threshold, c.conf_threshold)
+            score = torch.where(score > low, score, 0.0)
+            idx, ok = nms_topk(boxes, score, cls, c.max_boxes)
+            px = torch.clamp(boxes[idx], 0.0, 1.0) * scale
+            k_cls, k_score = cls[idx], score[idx]
+            is_person = k_cls == c.person_class
+            keep = ok & (k_score > 0)
+            for lst, mask in zip(out, (
+                    keep & is_person
+                    & (k_score > c.person_box_conf_for_culling),
+                    keep & is_person,
+                    keep & ~is_person & (k_score > c.conf_threshold))):
+                lst.append(Boxes(px, k_cls, k_score, mask))
+        return tuple(Boxes(*(torch.stack([getattr(b, f) for b in lst])
+                             for f in ("xyxy", "cls", "score", "valid")))
+                     for lst in out)
+
     def detect(self, rgb, image_w: int, image_h: int):
         """rgb [H,W,3] float in [0,1] -> (all_boxes, person_boxes_for_cull,
         dynamic_boxes_for_mapping, objects_2d) as `Boxes` in pixel coords

@@ -17,7 +17,9 @@ What differs from the reference, and why:
     function and not a more exact one;
   * each phase's `lax.while_loop` is a Python loop that reads the exit flag
     on the host after every iteration (at most iters1 + iters2 reads per
-    call). The exit rule is the reference's, unchanged.
+    call). The exit rule is the reference's, unchanged. With tol=0 (the
+    global BA) the flag is not read: it stays on the device and freezes the
+    state once set, so the whole budget runs without a host read.
 """
 
 from __future__ import annotations
@@ -222,10 +224,20 @@ def bundle_adjust(cam: Camera, prob: BAProblem, *, iters1: int = 5,
         return (poses, points, obs_mask, lam_next), improved, rel, stuck
 
     def phase(state, iters, use_huber):
+        if tol > 0:
+            for _ in range(iters):
+                state, improved, rel, stuck = gn_iter(state, use_huber)
+                if bool((improved & (rel < tol)) | stuck):
+                    break
+            return state
+        # tol=0 (global BA) runs its whole budget: the exit flag stays on
+        # the device and freezes the state once set, as the reference's
+        # while_loop would have stopped there
+        done = torch.zeros((), dtype=torch.bool, device=dev)
         for _ in range(iters):
-            state, improved, rel, stuck = gn_iter(state, use_huber)
-            if bool((improved & (rel < tol)) | stuck):
-                break
+            new, improved, rel, stuck = gn_iter(state, use_huber)
+            state = tuple(torch.where(done, a, b) for a, b in zip(state, new))
+            done = done | (improved & (rel < tol)) | stuck
         return state
 
     obs_valid = prob.obs_w > 0

@@ -1,20 +1,23 @@
 """System facade: the RGB-D semantic SLAM engine.
 
-Port of `sgslam_tpu/slam/system.py` without loop closing: per frame, the
-2-D detector, ORB extraction, the dynamic-feature cull (box-only before
-the map exists, then ORB correspondences + F-RANSAC + epipolar test),
-tracking with the keyframe back-end, and on keyframes the semantic mapper.
-The public API is the reference's: `track_rgbd`, trajectory savers, reset,
-shutdown, localization mode, checkpoints.
+Port of `sgslam_tpu/slam/system.py`: per frame, the 2-D detector, ORB
+extraction, the dynamic-feature cull (box-only before the map exists, then
+ORB correspondences + F-RANSAC + epipolar test), tracking with the keyframe
+back-end, relocalization when tracking is lost, and on keyframes loop
+closing (BoW database, Sim3 verification, essential graph, fusion, global
+BA) and the semantic mapper. The public API is the reference's:
+`track_rgbd`, trajectory savers, reset, shutdown, localization mode,
+checkpoints (with the place-recognition database).
 
-Loop closing and relocalization (`enable_loop=True`) wait for their slice
-(ROADMAP item 11) and raise; so do `track_stereo`, `track_monocular` and
-`monocular` (item 13). Entry points run on `device` ("cuda" by default).
+`track_stereo`, `track_monocular` and `monocular` wait for ROADMAP item 13
+and raise. Entry points run on `device` ("cuda" by default).
 
 `on_stage(name)`, if set, is called with "begin" at the start of
 `track_rgbd` and after each of its stages ("detector", "extract", "cull",
-"track", and "mapping" on keyframes), for timing with device events; it
-must not touch the state.
+"track", "relocalize" when tracking is lost, and "loop_closing" and
+"mapping" on keyframes), for timing with device events; it must not touch
+the state. `sampler` replaces the F-RANSAC draws and `draws` the loop
+closer's (tests replay the reference's).
 """
 
 from __future__ import annotations
@@ -32,25 +35,21 @@ from ..semantic import dynamic as dyn_mod
 from ..semantic.dynamic import Boxes
 from ..utils.timing import Metrics
 from . import tracking
+from .loop_closing import LoopCloser
 from .tracking import _as_tensor
-
-_NOT_PORTED = ("not ported yet: loop closing and relocalization are "
-               "ROADMAP item 11 of the PyTorch port")
 
 
 class System:
     def __init__(self, cfg: SlamConfig, vocab=None, *,
                  enable_semantic: bool = True, enable_loop: bool = True,
                  enable_mapping: bool = True, detector=None, device="cuda",
-                 sampler=None):
-        if enable_loop:
-            raise NotImplementedError(
-                "System(enable_loop=True): " + _NOT_PORTED
-                + "; pass enable_loop=False")
+                 sampler=None, draws=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tracker = tracking.Tracker(cfg, device=self.device)
-        self.loop = None
+        self._draws = draws
+        self.loop = (LoopCloser(cfg, vocab, device=self.device, draws=draws)
+                     if enable_loop else None)
         self.mapper = (SemanticMapper(cfg, device=self.device)
                        if enable_mapping else None)
         self.enable_semantic = enable_semantic and cfg.dynamic.enabled
@@ -59,6 +58,9 @@ class System:
             from ..models.detector import Detector2D
 
             self.detector = Detector2D(cfg.detector, device=self.device)
+
+        if self.loop is not None:
+            self.tracker.on_compaction = self.loop.remap_keyframes
 
         # `sampler` replaces the F-RANSAC draws (tests replay the
         # reference's); by default a generator seeded like the reference
@@ -127,24 +129,49 @@ class System:
         self.last_feats = feats   # post-cull features
         self._mark("track")
 
+        # relocalization on tracking loss (Tracking::Relocalization path)
+        if self.tracker.state == "LOST" and self.loop is not None:
+            with self.metrics.timer("relocalize"):
+                T_reloc, _ = self.loop.relocalize(self.tracker.map, feats)
+            self.metrics.count("reloc_attempts")
+            if T_reloc is not None:
+                self.tracker.force_pose(T_reloc)
+                Tcw = T_reloc.cpu().numpy()
+                self.metrics.count("reloc_success")
+            self._mark("relocalize")
+        tracked_Tcw = self.tracker.Tcw
+
         # lost right after init with a tiny map: full reset
         # (Tracking.cc:513-521 "Track lost soon after initialisation")
         if self.tracker.state == "LOST" and self.tracker.n_kf <= 5:
             self.reset()
             return Tcw
 
-        # keyframe side effect: semantic mapping
+        # keyframe side effects: loop closing + semantic mapping
         if self.tracker.kf_inserted:
             self.metrics.count("keyframes")
+            if self.loop is not None:
+                self._loop_closing()
             if self.mapper is not None:
                 with self.metrics.timer("mapping"):
                     self.mapper.insert_keyframe(
-                        gray, depth, self.tracker.Tcw, dynamic_boxes,
+                        gray, depth, tracked_Tcw, dynamic_boxes,
                         self.object_boxes)
                 self._mark("mapping")
 
         self.frontend.push(gray, feats_raw, dynamic_boxes)
         return Tcw
+
+    def _loop_closing(self):
+        kf_id = self.tracker.last_kf_id
+        with self.metrics.timer("loop_closing"):
+            corrected = self.loop.on_keyframe(self.tracker.map, kf_id)
+        if corrected is not None:
+            self.metrics.count("loops_closed")
+            self.tracker.map = corrected
+            self.tracker.Tcw = corrected.kf_pose[kf_id]
+            self.tracker.last_Tcw = self.tracker.Tcw
+        self._mark("loop_closing")
 
     # oracle-box injection hooks (tests drive the cull without a detector)
     @property
@@ -193,32 +220,41 @@ class System:
 
     def reset(self):
         """System::Reset contract: drop map + trajectory, keep config."""
-        self.__init__(self.cfg, enable_semantic=self.enable_semantic,
-                      enable_loop=False,
+        self.__init__(self.cfg, self.loop.vocab if self.loop else None,
+                      enable_semantic=self.enable_semantic,
+                      enable_loop=self.loop is not None,
                       enable_mapping=self.mapper is not None,
                       detector=self.detector, device=self.device,
-                      sampler=self._sampler)
+                      sampler=self._sampler, draws=self._draws)
 
-    # -- map checkpoint / resume (without the place-recognition database,
-    #    which comes with loop closing) --
+    # -- map checkpoint / resume (the reference's unimplemented TODO) --
     def save_checkpoint(self, path: str):
-        """Persist the full map; a saved checkpoint reopens in
-        localization-only mode (or resumes mapping)."""
+        """Persist the full map + place-recognition database; a saved
+        checkpoint reopens in localization-only mode (or resumes mapping)."""
         from ..io import checkpoint as ckpt
 
         extra = {"Tcw": self.tracker.Tcw.cpu().numpy(),
                  "frame_id": np.asarray(self.tracker.frame_id)}
+        if self.loop is not None:
+            extra["bow_db"] = self.loop.bow_db.cpu().numpy()
+            extra["db_valid"] = self.loop.db_valid.cpu().numpy()
         ckpt.save_map(path, self.tracker.map, extra)
 
     def load_checkpoint(self, path: str, localization_only: bool = True):
-        """Restore a saved map; the tracker starts LOST."""
+        """Restore a saved map; the tracker starts LOST and recovers by
+        relocalization against the restored keyframe database."""
         from ..io import checkpoint as ckpt
 
-        m, _ = ckpt.load_map(path, device=self.device)
+        m, extra = ckpt.load_map(path, device=self.device)
         self.tracker.map = m
         self.tracker.n_kf = int(m.kf_valid.sum())
         self.tracker.last_kf_id = int(m.next_kf) - 1
         self.tracker.state = "LOST"
+        if self.loop is not None and "bow_db" in extra:
+            self.loop.bow_db = torch.as_tensor(extra["bow_db"],
+                                               device=self.device)
+            self.loop.db_valid = torch.as_tensor(extra["db_valid"],
+                                                 device=self.device)
         if localization_only:
             self.activate_localization_mode()
 

@@ -59,15 +59,24 @@ def _pose_inputs(cfg: SlamConfig, feats: orb.Features, idx):
 
 
 def track_step(cfg: SlamConfig, m: ms.MapState, feats: orb.Features,
-               Tcw_pred, device="cuda"):
+               Tcw_pred, device="cuda", fallback: str = "host"):
     """Track one frame against the map. Returns
-    (Tcw, matched_pids [N], n_inliers, n_close_tracked, n_close_untracked),
-    all tensors on `device`.
+    (Tcw, matched_pids [N], n_inliers, n_close_tracked, n_close_untracked,
+    wants_fallback), all tensors on `device`; wants_fallback says that the
+    stage-1 count called for the brute-force fallback below.
 
     Stage 1 = TrackWithMotionModel contract: wide projective search
     (radius 15 px) at the predicted pose + motion-only BA.
     Stage 2 = TrackLocalMap contract: re-project at the refined pose,
     tight search (radius by viewing angle), second BA, inlier counts.
+
+    `fallback` says how the reference's `lax.cond` on the stage-1 count
+    runs: "host" takes the brute-force fallback when a host read of the
+    count asks for it; "device" always computes it and selects on the
+    device (no host read, one more K1 launch and pose optimization);
+    "skip" leaves it out, for a caller that checks wants_fallback later and
+    redoes the frame with "device" where it was wanted (the chunked
+    pipeline). The last two read nothing back.
     """
     dev = resolve_device(device)
     m, feats, Tcw_pred = m.to(dev), feats.to(dev), Tcw_pred.to(dev)
@@ -100,14 +109,20 @@ def track_step(cfg: SlamConfig, m: ms.MapState, feats: orb.Features,
     # Fallback when the windowed search fails (large/unmodeled motion):
     # descriptor-only brute force vs the local points, the contract of
     # TrackReferenceKeyFrame's SearchByBoW path (Tracking.cc:796-860).
-    if int(n1) < t.min_matches_motion:
+    def brute_force():
         idx, ok, dist = search.match_by_descriptor(
             local.desc, local.valid, feats.desc, feats.valid, cfg.matcher,
             max_dist=cfg.matcher.th_low, mutual=True)
         ok = search.resolve_duplicate_targets(idx, ok, dist, feats.capacity)
         obs, inv_s2 = _pose_inputs(cfg, feats, idx)
-        Tcw1, _, _ = pose_opt.pose_optimization(
-            cfg.camera, Tcw_pred, local.pos, obs, inv_s2, ok)
+        return pose_opt.pose_optimization(
+            cfg.camera, Tcw_pred, local.pos, obs, inv_s2, ok)[0]
+
+    wants_fallback = n1 < t.min_matches_motion
+    if fallback == "device":
+        Tcw1 = torch.where(wants_fallback, brute_force(), Tcw1)
+    elif fallback == "host" and bool(wants_fallback):
+        Tcw1 = brute_force()
 
     # Stage 2: tight local-map association at refined pose
     Tcw2, idx2, ok2, n2 = associate_and_optimize(
@@ -125,7 +140,7 @@ def track_step(cfg: SlamConfig, m: ms.MapState, feats: orb.Features,
     close = (feats.depth > 0) & (feats.depth < cfg.close_depth_threshold)
     tracked_close = torch.sum((matched >= 0) & close)
     untracked_close = torch.sum((matched < 0) & close & feats.valid)
-    return Tcw2, matched, n2, tracked_close, untracked_close
+    return Tcw2, matched, n2, tracked_close, untracked_close, wants_fallback
 
 
 def _window_ba(cfg: SlamConfig, m: ms.MapState, ids, opt_mask):
@@ -318,7 +333,7 @@ class Tracker:
             return self.Tcw.cpu().numpy()
 
         Tcw_pred = se3.se3_compose(self.velocity, self.last_Tcw)
-        Tcw, matched, n_inl, tracked_close, untracked_close = track_step(
+        Tcw, matched, n_inl, tracked_close, untracked_close, _ = track_step(
             self.cfg, self.map, feats, Tcw_pred, self.device)
         n_inl = int(n_inl)
         self.n_inliers_hist.append(n_inl)

@@ -29,6 +29,7 @@ from sgslam_tpu.io import synthetic as jsyn
 from sgslam_tpu.slam.system import System as JSystem
 from sgslam_tpu_torch import config as tcfg
 from sgslam_tpu_torch.semantic.dynamic import Boxes
+from sgslam_tpu_torch.slam.loop_closing import LoopCloser
 from sgslam_tpu_torch.slam.system import System as TSystem
 
 
@@ -187,10 +188,28 @@ def test_oracle_boxes_halve_ate(seq):
     assert rmse_plain > 2.0 * rmse_sem, (rmse_plain, rmse_sem)
 
 
-def test_api(runs, tmp_path):
+def test_api(runs, seq, tmp_path):
     st = runs["port"][0]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TSystem(TCFG, device="cpu")                 # enable_loop=True
+    # the default System closes loops: it builds a LoopCloser and tracks,
+    # and its checkpoints carry the keyframe database both ways
+    sd = TSystem(TCFG, enable_mapping=False, device="cpu")
+    assert isinstance(sd.loop, LoopCloser)
+    for g, d in seq[1][:3]:
+        sd.track_rgbd(torch.from_numpy(g), torch.from_numpy(d),
+                      rgb=torch.from_numpy(np.repeat(g[..., None], 3, -1)))
+    assert sd.state == "OK" and bool(sd.loop.db_valid[0])
+    assert sd.metrics.summary()["count/keyframes"] >= 1
+    sd.save_checkpoint(str(tmp_path / "loop.npz"))
+    sj = JSystem(JCFG, enable_semantic=False, enable_mapping=False)
+    sj.load_checkpoint(str(tmp_path / "loop.npz"))
+    np.testing.assert_array_equal(np.asarray(sj.loop.bow_db),
+                                  sd.loop.bow_db.numpy())
+    sj.save_checkpoint(str(tmp_path / "loop_j.npz"))
+    sd.reset()
+    assert sd.loop is not None and not bool(sd.loop.db_valid.any())
+    sd.load_checkpoint(str(tmp_path / "loop_j.npz"))
+    np.testing.assert_array_equal(sd.loop.db_valid.numpy(),
+                                  np.asarray(sj.loop.db_valid))
     with pytest.raises(NotImplementedError, match="item 13"):
         st.track_stereo(None, None)
     with pytest.raises(NotImplementedError, match="item 13"):

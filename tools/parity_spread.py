@@ -2,7 +2,7 @@
 """How far the JAX reference moves from itself, beside how far the port
 moves from it: the yardstick for the back-end's parity tolerances.
 
-    python tools/parity_spread.py ba|pass|tracker|capacity|main|cull [--seeds 3]
+    python tools/parity_spread.py ba|pass|tracker|capacity|main|cull|loop|chunk|reloc [--seeds 3]
 
 Runs on the CPU (JAX and the port's CPU path). Each mode runs the
 reference once as it is, then `--seeds` times with one input moved by one
@@ -30,7 +30,29 @@ and the port once, and prints the gaps:
             reference's RANSAC draws replayed; (b) `System` with the real
             detector over its 30 frames (input: the gray and depth images),
             keyframe frames, pose gaps and ATE, the port on its own
-            features with the draws replayed.
+            features with the draws replayed;
+  loop      the loop correction: (a) `global_ba_step` (10 iterations, loop
+            pair pinned) on tests/test_torch_loop_components.py's perturbed
+            map (input: the map's points), pose and point gaps; (b)
+            `System` with loop closing over tests/test_loop_e2e.py's
+            drifted circuit (input: the gray and depth images), the loop
+            pair and the keyframe ATE after the correction, the port on
+            its own features with the Sim3 / PnP draws replayed;
+  chunk     the chunked pipeline: (a) two chunks of the chunk function
+            from tests/test_torch_scan_pipeline.py's post-bootstrap state
+            (input: the chunk's images), keyframe flags, inlier and pose
+            gaps, the port fed the reference's features; (b)
+            tests/test_chunked_full_system.py's 92-frame chunked loop
+            fixture (input: the images), loops, keyframe ATE after the
+            correction and whole-trajectory ATE, the port on its own
+            features with the draws replayed;
+  reloc     tests/test_chunked_full_system.py's chunked kidnap (input: the
+            images): relocalizations and the last four frames' gaps to the
+            map's own estimate (that test's gate: the smallest < 0.06 m),
+            exported and as recorded; the port on its own features with
+            the reference's draws replayed (and once with its default
+            draws), on the same moved images as the reference.
+The loop, chunk and reloc modes reuse the fixtures of the port's test files.
 """
 
 from __future__ import annotations
@@ -343,10 +365,216 @@ def mode_cull(seeds):
            system_run(port, frames, gt, torch.from_numpy))
 
 
+def _test_module(name):
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tests"))
+    import importlib
+
+    return importlib.import_module(name)
+
+
+def _moved_frames(frames, s):
+    return [(np.asarray(one_ulp(g, 2000 * s + i)),
+             np.asarray(one_ulp(d, 3000 * s + i)))
+            for i, (g, d) in enumerate(frames)]
+
+
+def mode_loop(seeds):
+    from sgslam_tpu.mapstate import mapstate as jms
+    from sgslam_tpu.optim import global_ba as jgba
+    from sgslam_tpu_torch.optim import global_ba as tgba
+
+    tc = _test_module("test_torch_loop_components")
+    arrays = tc._perturbed_map()
+    fixed = np.zeros(64, bool)
+    fixed[3] = True
+
+    def gba(pts):
+        m = jms.MapState(**{k: jnp.asarray(v) for k, v in arrays.items()})
+        m = dataclasses.replace(m, pt_pos=pts)
+        out = jgba.global_ba_step(tc.GBA_CFG_J, m, iters=10,
+                                  fixed_extra=jnp.asarray(fixed))
+        return np.asarray(out.kf_pose)[:6], np.asarray(out.pt_pos)[:400]
+
+    def gaps(name, a, b):
+        d = np.linalg.norm(a[1] - b[1], axis=1)
+        print(f"{name}: {_pose_gap(a[0], b[0])}; points median "
+              f"{np.median(d):.3g} m, max {d.max():.3g} m")
+
+    ref = gba(jnp.asarray(arrays["pt_pos"]))
+    for s in range(seeds):
+        gaps(f"global BA, reference, points moved by one ulp (seed {s})",
+             gba(one_ulp(arrays["pt_pos"], s)), ref)
+    out = tgba.global_ba_step(tc.GBA_CFG_T, convert.map_from_numpy(arrays),
+                              iters=10, fixed_extra=torch.from_numpy(fixed))
+    gaps("global BA, port", (out.kf_pose[:6].numpy(),
+                             out.pt_pos[:400].numpy()), ref)
+
+    tl = _test_module("test_torch_loop_closing")
+    frames, gt = tl.circuit_frames()
+
+    def jsystem():
+        return jsys.System(tl.JCFG, enable_semantic=False,
+                           enable_mapping=False)
+
+    def report(name, r):
+        print(f"{name}: loops {r['s'].loop.loops_closed}, keyframe ATE "
+              f"drifted {r['drifted']:.4f} m -> final {r['final']:.4f} m")
+
+    report("System loop fixture, reference",
+           tl.run_drifted(jsystem(), frames, gt))
+    for s in range(seeds):
+        report(f"  reference, images moved by one ulp (seed {s})",
+               tl.run_drifted(jsystem(), _moved_frames(frames, s), gt))
+    report("  port, own features, the reference's draws", tl.run_drifted(
+        tsys.System(tl.TCFG, enable_semantic=False, enable_mapping=False,
+                    device="cpu", draws=tl.replay_draws), frames, gt))
+
+
+def mode_chunk(seeds):
+    from sgslam_tpu.slam import loop_closing as jlc
+    from sgslam_tpu.slam import scan_pipeline as jsp
+    from sgslam_tpu_torch.slam import loop_closing as tlc
+    from sgslam_tpu_torch.slam import scan_pipeline as tsp
+
+    ts = _test_module("test_torch_scan_pipeline")
+    seq = jsyn.SyntheticSequence(ts.JCFG.camera, n_frames=ts.N)
+    frames = [tuple(np.array(x) for x in seq.frame(i)) for i in range(ts.N)]
+    cj = jsp.ChunkedTracker(ts.JCFG, chunk=ts.CHUNK, fetch_every=2,
+                            loop=jlc.LoopCloser(ts.JCFG))
+    boot, snap = ts._drive(cj, frames, jnp.asarray, ts.N)
+    ref, fed = ts.reference_chunks(snap, frames, boot)
+
+    def gaps(name, runs):
+        flags = all((a[:, 8] == b[:, 8]).all() for a, b in zip(runs, ref))
+        dt = max(np.abs(a[:-1, 4:7] - b[:-1, 4:7]).max()
+                 for a, b in zip(runs, ref))
+        di = max(np.abs(a[:-1, 7] - b[:-1, 7]).max()
+                 for a, b in zip(runs, ref))
+        print(f"{name}: keyframe flags {'equal' if flags else 'DIFFER'}, "
+              f"poses {dt:.3g} m, inliers {di:.0f}")
+
+    print(f"two chunks from the post-bootstrap state: reference inserts "
+          f"{[int(p[-1, 2]) for p in ref]} keyframes")
+    for s in range(seeds):
+        gaps(f"  reference, images moved by one ulp (seed {s})",
+             ts.reference_chunks(snap, frames, boot,
+                                 move=lambda x, s=s: one_ulp(x, s))[0])
+    gaps("  port, the reference's features",
+         ts.port_chunks(snap, frames, boot, fed))
+
+    tcl = _test_module("test_torch_chunked_loop")
+    poses = jsyn.make_circuit_trajectory(tcl.N_LOOP, loops=tcl.LOOPS)
+    seq = jsyn.SyntheticSequence(tcl.JCFG.camera, n_frames=tcl.N_LOOP,
+                                 planes=jsyn.ROOM_CLOSED, poses=poses)
+    frames = [tuple(np.array(x) for x in seq.frame(i))
+              for i in range(tcl.N_LOOP)]
+    gt = np.asarray(poses)
+
+    def jrun(fr):
+        return tcl.run_chunked_loop(
+            jsp.ChunkedTracker(tcl.JCFG, chunk=tcl.CHUNK, fetch_every=2,
+                               loop=jlc.LoopCloser(tcl.JCFG)), fr, gt, False)
+
+    def report(name, r):
+        print(f"{name}: loops {r['loops']} {r['pairs']}, keyframe ATE "
+              f"drifted {r['drifted']:.4f} -> final {r['final']:.4f} m, "
+              f"trajectory ATE {r['traj']:.4f} m")
+
+    report("chunked loop fixture, reference", jrun(frames))
+    for s in range(seeds):
+        report(f"  reference, images moved by one ulp (seed {s})",
+               jrun(_moved_frames(frames, s)))
+    report("  port, own features, the reference's draws",
+           tcl.run_chunked_loop(tsp.ChunkedTracker(
+               tcl.TCFG, chunk=tcl.CHUNK, fetch_every=2,
+               loop=tlc.LoopCloser(tcl.TCFG, device="cpu",
+                                   draws=tcl.replay_draws),
+               device="cpu"), frames, gt, True))
+
+
+KIDNAP_N, KIDNAP_MAP, KIDNAP_TO, KIDNAP_CHUNK = 88, 44, 6, 4
+
+
+def kidnap_run(ct, frames, stack):
+    """tests/test_chunked_full_system.py::test_chunked_kidnap_relocalizes on
+    either package's ChunkedTracker: map the first 44 frames, then three
+    chunks from frame 6. Returns (relocalizations, the last four frames'
+    exported gaps to the map's own estimate, their recorded poses' gaps)."""
+    c = KIDNAP_CHUNK
+    i = 0
+    while ct._carry is None:
+        ct.bootstrap(*frames[i])
+        i += 1
+    while i + c <= KIDNAP_MAP:
+        ct.process_chunk(stack([f[0] for f in frames[i:i + c]]),
+                         stack([f[1] for f in frames[i:i + c]]))
+        i += c
+    ct.flush()
+    own = np.asarray(ct.poses_cw())
+    for k in range(3):
+        lo = KIDNAP_TO + k * c
+        ct.process_chunk(stack([f[0] for f in frames[lo:lo + c]]),
+                         stack([f[1] for f in frames[lo:lo + c]]))
+    ct.flush()
+    last = KIDNAP_TO + 3 * c - 1
+
+    def gaps(poses):
+        return [float(np.linalg.norm(np.asarray(poses[-(k + 1)])[4:7]
+                                     - own[last - k][4:7])) for k in range(c)]
+
+    return ct.relocs, gaps(np.asarray(ct.poses_cw())), gaps(ct.trajectory)
+
+
+def mode_reloc(seeds):
+    from sgslam_tpu.slam import loop_closing as jlc
+    from sgslam_tpu.slam import scan_pipeline as jsp
+    from sgslam_tpu_torch.slam import loop_closing as tlc
+    from sgslam_tpu_torch.slam import scan_pipeline as tsp
+
+    tcl = _test_module("test_torch_chunked_loop")
+    seq = jsyn.SyntheticSequence(
+        tcl.JCFG.camera, n_frames=KIDNAP_N, planes=jsyn.ROOM_CLOSED,
+        poses=jsyn.make_circuit_trajectory(KIDNAP_N, loops=1.0))
+    frames = [tuple(np.array(x) for x in seq.frame(i))
+              for i in range(KIDNAP_N)]
+
+    def report(name, r):
+        print(f"{name}: relocalizations {r[0]}, the last 4 frames' gaps to "
+              f"the map's own estimate {np.round(r[1], 4).tolist()} m (min "
+              f"{min(r[1]):.4f}; gate 0.06), recorded poses "
+              f"{np.round(r[2], 4).tolist()} m")
+
+    def jrun(fr):
+        return kidnap_run(jsp.ChunkedTracker(
+            tcl.JCFG, chunk=KIDNAP_CHUNK, fetch_every=1,
+            loop=jlc.LoopCloser(tcl.JCFG)),
+            [tuple(jnp.asarray(x) for x in f) for f in fr], jnp.stack)
+
+    def trun(fr, draws):
+        return kidnap_run(tsp.ChunkedTracker(
+            tcl.TCFG, chunk=KIDNAP_CHUNK, fetch_every=1, device="cpu",
+            loop=tlc.LoopCloser(tcl.TCFG, device="cpu", draws=draws)),
+            [tuple(torch.from_numpy(x) for x in f) for f in fr],
+            torch.stack)
+
+    report("chunked kidnap, reference", jrun(frames))
+    report("  port, own features, the reference's draws",
+           trun(frames, tcl.replay_draws))
+    report("  port, own features, its default draws", trun(frames, None))
+    for s in range(seeds):
+        moved = _moved_frames(frames, s)
+        report(f"  reference, images moved by one ulp (seed {s})",
+               jrun(moved))
+        report(f"  port, the same images, the reference's draws",
+               trun(moved, tcl.replay_draws))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=["ba", "pass", "tracker", "capacity",
-                                     "main", "cull"])
+                                     "main", "cull", "loop", "chunk",
+                                     "reloc"])
     ap.add_argument("--seeds", type=int, default=3)
     args = ap.parse_args()
     torch.set_num_threads(1)
@@ -358,6 +586,12 @@ def main() -> int:
         mode_main()
     elif args.mode == "cull":
         mode_cull(args.seeds)
+    elif args.mode == "loop":
+        mode_loop(args.seeds)
+    elif args.mode == "chunk":
+        mode_chunk(args.seeds)
+    elif args.mode == "reloc":
+        mode_reloc(args.seeds)
     else:
         mode_sequence(args.seeds, args.mode == "capacity")
     return 0

@@ -5,14 +5,23 @@ semantic system on the GPU.
     python tools/profile_torch_tracking.py [tracking] [--frames 60]
                                            [--window 10] [--passes 3]
     python tools/profile_torch_tracking.py system [--frames 60] [--window 10]
+    python tools/profile_torch_tracking.py chunk [--chunks 10]
 
 `system` drives the first `--frames` frames of chip_smoke.py's phase-7
-sequence (640x480, three walkers, fast rotation, 150 frames) through `System(cfg, enable_loop=False).track_rgbd` with
-the detector, the cull, the back-end and the mapper, then profiles the last
+sequence (640x480, three walkers, fast rotation, 150 frames) through
+`System(cfg).track_rgbd` (loop closing on) with the detector, the cull, the
+back-end and the mapper, then profiles the last
 `--window` frames of `track_rgbd` as a whole, and each stage on its own on
 those frames: the detector, `extract_frame`, the dynamic cull (against
 the previous frame) and the mapper's keyframe insertion (three frames, a
 fresh mapper). Output: build/profile_torch_system.json.
+
+`chunk` sets up chip_smoke.py's phase 10 (bench.py's schedule: the
+chunked semantic pipeline with a loop closer at 640x480), runs its 12 warm
+chunks and a flush, then profiles the next `--chunks` chunks and a flush:
+kernels per frame, the device idle share, and the device-to-host copies
+per chunk (the host reads listed in `slam/scan_pipeline.py`). Output:
+build/profile_torch_chunk.json.
 
 Without a mode:
 Tracks the full-width synthetic sequence (640x480, 1000 features, 1024
@@ -80,7 +89,9 @@ def _profiled(fn, n_frames):
     busy_ms = sum(r[2] for r in rows) / 1e3
     launches = sum(r[1] for r in rows)
     k1_us = sum(r[2] for r in rows if "hamming_kernel" in r[0])
+    dtoh = sum(r[1] for r in rows if "DtoH" in r[0])
     return {
+        "dtoh_copies_per_frame": dtoh / n_frames,
         "wall_ms_per_frame": wall_ms / n_frames,
         "device_ms_per_frame": busy_ms / n_frames,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -116,7 +127,7 @@ def profile_system(args, dev) -> int:
     seq = chip_smoke.semantic_sequence(cfg, dev)     # the 150-frame walk
     frames = [seq.frame(i) for i in range(args.frames)]
     rgb = chip_smoke._rgb
-    s = System(cfg, enable_loop=False, device=dev)
+    s = System(cfg, device=dev)
     start = args.frames - args.window
     for g, d in frames[:start]:
         s.track_rgbd(g, d, rgb=rgb(g))
@@ -169,13 +180,53 @@ def profile_system(args, dev) -> int:
     return 0
 
 
+def profile_chunk(args, dev) -> int:
+    cfg = config.synthetic_config(640, 480)
+    warm = chip_smoke.BENCH_WARM
+    _, ct, g, d = chip_smoke.bench_setup(dev, cfg, warm + args.chunks)
+    for c in range(warm):
+        ct.process_chunk(g[c], d[c])
+    ct.flush()
+    kf0 = ct._next_kf_host
+    hamming_cuda.hamming_kernel.launches = 0
+
+    def run():
+        for c in range(warm, warm + args.chunks):
+            ct.process_chunk(g[c], d[c])
+        ct.flush()
+
+    n = args.chunks * chip_smoke.BENCH_CHUNK
+    r = _profiled(run, n)
+    smi = _smi()
+    out = {"device": smi, "torch": torch.__version__, "chunks": args.chunks,
+           "frames": n, "keyframes": ct._next_kf_host - kf0,
+           "loops_closed": ct.loops_closed,
+           "k1_launches_per_frame": hamming_cuda.hamming_kernel.launches / n,
+           "dtoh_copies_per_chunk": r["dtoh_copies_per_frame"]
+           * chip_smoke.BENCH_CHUNK, "profile": r}
+    path = args.out or "build/profile_torch_chunk.json"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"[profile] chunked pipeline, {args.chunks} chunks of "
+          f"{chip_smoke.BENCH_CHUNK} after {warm} warm chunks: "
+          f"{out['keyframes']} keyframes, K1 "
+          f"{out['k1_launches_per_frame']:.2f} launches/frame, "
+          f"{out['dtoh_copies_per_chunk']:.1f} device-to-host copies/chunk")
+    _print_stage("chunked pipeline", r)
+    print(json.dumps({"device": smi, "dtoh_copies_per_chunk":
+                      out["dtoh_copies_per_chunk"]}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", nargs="?", default="tracking",
-                    choices=["tracking", "system"])
+                    choices=["tracking", "system", "chunk"])
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--window", type=int, default=10)
     ap.add_argument("--passes", type=int, default=3)
+    ap.add_argument("--chunks", type=int, default=10)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -186,6 +237,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.mode == "system":
         return profile_system(args, dev)
+    if args.mode == "chunk":
+        return profile_chunk(args, dev)
     args.out = args.out or "build/profile_torch_tracking.json"
 
     cfg = config.synthetic_config(640, 480)
