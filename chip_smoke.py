@@ -68,11 +68,30 @@ Phases, each of which fails the run if it fails:
      moved by one ulp (four seeds): every run must relocalize, track again
      and land within 0.5 m of the map's own poses, and that test's pose
      gate (< 0.06 m) must hold on at least one run;
+ 13. stereo at full width: run_eval's `stereo_640_walk` (120 frames at
+     640x480, pairs rendered on the card by `frame_stereo`) through
+     `System(cfg, enable_semantic=False, enable_mapping=False)
+     .track_stereo` and `ChunkedStereoTracker(chunk=4, fetch_every=6,
+     loop=LoopCloser)`, both under run_eval's 0.04 m stereo gate, each
+     stage timed and `stereo_match` alone; `ChunkedSemanticStereoTracker`
+     at tests/test_chunked_parity.py's 320x240 (26 dynamic frames, 0.12 m
+     gate); the stereo + mapper guard raises;
+ 14. monocular at full width: `System.monocular(cfg, ...)
+     .track_monocular` over 30 frames of the room at 640x480 (default
+     widths and capacity) under tests/test_mono_stereo.py's gates
+     (initialized before frame 15, state OK, > 150 points, Sim(3)-aligned
+     ATE < 0.06 m x max(span, 1)); `initialize_mono` timed alone and run
+     again on the CPU on the same matches and draws;
+ 15. the dataset CLI on the card: `run_tum.main(["--synthetic", "60", ...])`
+     per frame and `--chunked` (default flags, the `tum3` preset): the
+     summary keys of `sgslam_tpu/run_tum.py`, ATE under run_eval's 0.03 m
+     static gate, K1 launched on the card;
   then print the `kernels` line, the card's name and power limit, and last
   `{"ok": true, "device": ...}`.
 The kernel launch counts are set to 0 just before each of phases 4-8 and
-10-12 and read just after; the `kernels` line carries phase 10's (the timed
-window of bench.py's schedule). Phase 7's `System` runs with loop closing
+10-15 (each path of 13 and both calls of 15) and read just after; the
+`kernels` line carries phase 10's (the timed window of bench.py's
+schedule). Phase 7's `System` runs with loop closing
 on (its default), so its frame times include the loop closer's keyframe
 database work.
 
@@ -138,6 +157,15 @@ RELOC_MOVED_SEEDS = (0, 1, 2, 3)
 # tests/test_chunked_full_system.py (se3 twists at the newest keyframe)
 FORCED_DRIFT_SYSTEM = (0.44, 0.0, 0.20, 0.0, 0.12, 0.0)
 FORCED_DRIFT_CHUNKED = (0.66, 0.0, 0.30, 0.0, 0.18, 0.0)
+STEREO_FRAMES = 120            # run_eval.py's stereo_640_walk
+STEREO_GATE_M = 0.04           # run_eval.py's STEREO_GATE
+# tests/test_chunked_parity.py::test_chunked_semantic_stereo
+SEM_STEREO_FRAMES, SEM_STEREO_GATE_M = 26, 0.12
+# tests/test_mono_stereo.py::test_mono_pipeline_e2e's run and gates
+MONO_FRAMES, MONO_INIT_BEFORE, MONO_MIN_POINTS = 30, 15, 150
+MONO_ATE_FACTOR = 0.06         # x max(span, 1 m), Sim(3)-aligned
+CLI_FRAMES = 60
+CLI_ATE_GATE_M = 0.03          # run_eval.py's STATIC_GATE
 SEM_ATE_GATE_M = 0.05          # the EVAL dynamic gate (tools/run_eval.py)
 MIN_PERSON_SHARE = 0.6
 MIN_OCCUPIED_CELLS = 20
@@ -1384,6 +1412,344 @@ def phase_relocalization(dev, moved_seeds=RELOC_MOVED_SEEDS):
         raise AssertionError(f"relocalization: the pose gate holds on no "
                              f"run: {best}")
 
+def stereo_sequence(cfg, dev, n_frames=STEREO_FRAMES):
+    """run_eval's stereo_640_walk: the room walk with yaw amplitude 0.25,
+    no people, its (left, right) pairs rendered on `dev`."""
+    from sgslam_tpu_torch.io import synthetic
+
+    seq = synthetic.SyntheticSequence(
+        cfg.camera, n_frames=n_frames, device=dev,
+        poses=synthetic.make_walk_trajectory(n_frames, yaw_amp=0.25,
+                                             device=dev))
+    return seq, [seq.frame_stereo(i)[:2] for i in range(n_frames)]
+
+
+def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
+    """Stereo at full width: run_eval's stereo_640_walk through
+    `System.track_stereo` (loop closing on) and `ChunkedStereoTracker`
+    with a LoopCloser, both under run_eval's STEREO_GATE; the semantic
+    stereo runner at tests/test_chunked_parity.py's size under that test's
+    gate; the stereo + mapper guard. Times each stage (CUDA events) and
+    `stereo_match` alone at the path's shapes."""
+    import torch
+
+    from sgslam_tpu_torch.io import synthetic
+    from sgslam_tpu_torch.mapping.semantic_mapper import SemanticMapper
+    from sgslam_tpu_torch.models.detector import Detector2D
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.ops import orb
+    from sgslam_tpu_torch.ops.stereo import stereo_match
+    from sgslam_tpu_torch.slam import scan_pipeline
+    from sgslam_tpu_torch.slam.loop_closing import LoopCloser
+    from sgslam_tpu_torch.slam.system import System
+
+    cfg = cfg or semantic_config()
+    seq, pairs = stereo_sequence(cfg, dev, n_frames)
+    gt = seq.poses.cpu().numpy()
+    torch.cuda.synchronize()
+
+    # (a) System.track_stereo, loop closing on
+    s = System(cfg, enable_semantic=False, enable_mapping=False, device=dev)
+    timer = StageTimer()
+    s.on_stage = timer
+    hc.hamming_kernel.launches = 0
+    t0 = time.perf_counter()
+    kf_frames = []
+    for i, (gl, gr) in enumerate(pairs):
+        s.track_stereo(gl, gr)
+        if s.tracker.kf_inserted:
+            kf_frames.append(i)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = hc.hamming_kernel.launches
+    rmse = _ate(s.tracker, gt)
+    groups = timer.groups()
+    med = {n: float(np.median([g[n] for i, g in enumerate(groups)
+                               if i not in kf_frames]))
+           for n in ("extract", "track")}
+    kf_track = [groups[i]["track"] for i in kf_frames[1:]]
+    loop_ms = [groups[i]["loop_closing"] for i in kf_frames]
+    gl, gr = pairs[n_frames // 2]
+    feats = orb.extract(gl, cfg.orb, cfg.camera)
+    sm_ms = _event_ms(lambda: stereo_match(
+        cfg.camera, gl, gr, feats.xy_raw, feats.level, feats.valid), runs=20)
+    n_ok = int(stereo_match(cfg.camera, gl, gr, feats.xy_raw, feats.level,
+                            feats.valid)[2].sum())
+    print(f"[stereo] run_eval's stereo_640_walk, {n_frames} frames "
+          f"{cfg.camera.width}x{cfg.camera.height}, System.track_stereo "
+          f"(loop closing on) in {run_s:.2f} s: state {s.state}, "
+          f"{s.tracker.n_kf} keyframes, loops closed "
+          f"{len(s.loop.loops_closed)}, ATE {rmse:.5f} m (gate "
+          f"{STEREO_GATE_M} m), K1 launches {launches} "
+          f"({launches / n_frames:.2f}/frame)")
+    print(f"[stereo] per frame (median, CUDA events, frames without a "
+          f"keyframe): extract_frame_stereo {med['extract']:.3f} ms, track "
+          f"{med['track']:.3f} ms; keyframe frames: track with the back-end "
+          f"{np.median(kf_track) if kf_track else float('nan'):.3f} ms, "
+          f"loop closing {np.median(loop_ms):.3f} ms; stereo_match alone "
+          f"({int(feats.valid.sum())} keypoints x 96 disparities x 25 taps,"
+          f" one eager call between CUDA events): {sm_ms:.3f} ms, "
+          f"{n_ok} matches accepted")
+    if s.state != "OK" or not rmse < STEREO_GATE_M:
+        raise AssertionError(f"stereo System: state {s.state}, ATE "
+                             f"{rmse:.4f} m")
+    if launches < 2 * (n_frames - 1):
+        raise AssertionError(f"stereo System: K1 launched {launches} times")
+
+    # (b) ChunkedStereoTracker with a loop closer, run_eval's schedule
+    ct = scan_pipeline.ChunkedStereoTracker(
+        cfg, chunk=BENCH_CHUNK, fetch_every=BENCH_FETCH,
+        loop=LoopCloser(cfg, device=dev), device=dev)
+    chunk_timer = StageTimer()
+    ct.on_chunk_stage = chunk_timer
+    hc.hamming_kernel.launches = 0
+    t0 = time.perf_counter()
+    _run_chunked(ct, pairs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = hc.hamming_kernel.launches
+    rmse = _ate_cw(ct.poses_cw(), gt)
+    stages = _chunk_stage_split(chunk_timer)
+    print(f"[stereo] ChunkedStereoTracker(chunk={BENCH_CHUNK}, fetch_every="
+          f"{BENCH_FETCH}, loop) in {run_s:.2f} s: {ct.n_kf} keyframes, "
+          f"loops closed {ct.loops_closed}, lost frames "
+          f"{int(ct.lost_mask().sum())}, ATE {rmse:.5f} m, K1 launches "
+          f"{launches} ({launches / n_frames:.2f}/frame); per chunk "
+          f"(median): " + ", ".join(f"{k} {v:.3f} ms ({n})"
+                                    for k, (v, n) in stages.items()))
+    if not rmse < STEREO_GATE_M:
+        raise AssertionError(f"chunked stereo: ATE {rmse:.4f} m")
+    if launches < 1:
+        raise AssertionError("chunked stereo: K1 never launched")
+
+    # (c) ChunkedSemanticStereoTracker at test_chunked_semantic_stereo's
+    # size: 26 dynamic frames at 320x240, chunk 4, fetch 2
+    scfg = kidnap_config()
+    sseq = synthetic.SyntheticSequence(scfg.camera,
+                                       n_frames=SEM_STEREO_FRAMES,
+                                       dynamic=True, device=dev)
+    spairs = [sseq.frame_stereo(i)[:2] for i in range(SEM_STEREO_FRAMES)]
+    st = scan_pipeline.ChunkedSemanticStereoTracker(
+        scfg, Detector2D(scfg.detector, device=dev), chunk=BENCH_CHUNK,
+        fetch_every=2, device=dev)
+    hc.hamming_kernel.launches = 0
+    _run_chunked(st, spairs)
+    launches = hc.hamming_kernel.launches
+    est = st.poses_cw()
+    rmse = _ate_cw(est, sseq.poses[:len(est)].cpu().numpy())
+    med_inl = sorted(st.n_inliers_hist)[len(st.n_inliers_hist) // 2]
+    print(f"[stereo] ChunkedSemanticStereoTracker, {len(est)} frames "
+          f"{scfg.camera.width}x{scfg.camera.height} with a walking person: "
+          f"{st.n_kf} keyframes, median inliers {med_inl}, ATE {rmse:.5f} m "
+          f"(gate {SEM_STEREO_GATE_M} m), K1 launches {launches}")
+    if st.n_kf < 2 or not rmse < SEM_STEREO_GATE_M or med_inl < 30:
+        raise AssertionError(f"semantic stereo: {st.n_kf} keyframes, ATE "
+                             f"{rmse:.4f} m, median inliers {med_inl}")
+
+    # (d) the stereo + mapper guard
+    try:
+        scan_pipeline.ChunkedStereoTracker(
+            cfg, mapper=SemanticMapper(cfg, device=dev), device=dev)
+    except ValueError as e:
+        if "right image" not in str(e):
+            raise
+        print("[stereo] the stereo + SemanticMapper guard raises ValueError")
+    else:
+        raise AssertionError("stereo + mapper: no ValueError")
+
+
+def mono_config():
+    """tests/test_mono_stereo.py::test_mono_pipeline_e2e's tracker at full
+    width: default widths and capacity."""
+    from sgslam_tpu_torch import config
+
+    return config.synthetic_config(
+        640, 480, tracker=config.TrackerConfig(max_frames_between_kf=2,
+                                               depth_threshold_factor=70.0))
+
+
+def phase_mono(dev, cfg=None, n_frames=MONO_FRAMES):
+    """Monocular at full width: `System.monocular(...).track_monocular`
+    over the default room, under tests/test_mono_stereo.py's gates;
+    `initialize_mono` timed alone and run again on the CPU on the same
+    matches and draws (the batched SVDs of the two devices)."""
+    import torch
+
+    from sgslam_tpu_torch.eval import ate
+    from sgslam_tpu_torch.geometry import se3
+    from sgslam_tpu_torch.geometry.epipolar import draw_ranks
+    from sgslam_tpu_torch.io import synthetic
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.optim import initializer
+    from sgslam_tpu_torch.slam import mono
+    from sgslam_tpu_torch.slam.system import System
+
+    cfg = cfg or mono_config()
+    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames,
+                                      device=dev)
+    grays = [seq.frame(i)[0] for i in range(n_frames)]
+    s = System.monocular(cfg, enable_semantic=False, enable_mapping=False,
+                         device=dev)
+    calls = []
+
+    def recorded(cam, p1, p2, valid, generator=None, *, iters=200,
+                 samples=None):
+        """initialize_mono with its draws made here (as it makes them), so
+        that the call can be replayed; CUDA events around it."""
+        if samples is None:
+            n_valid = torch.clamp(torch.sum(valid.to(torch.int32)), min=8)
+            samples = (draw_ranks(n_valid, iters, 8, generator),
+                       draw_ranks(n_valid, iters, 4, generator))
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = initializer.initialize_mono(cam, p1, p2, valid,
+                                          samples=samples)
+        b.record()
+        calls.append(((cam, p1, p2, valid, samples), out, a, b))
+        return out
+
+    mono.initialize_mono = recorded
+    timer = StageTimer()
+    s.on_stage = timer
+    hc.hamming_kernel.launches = 0
+    t0 = time.perf_counter()
+    init = None
+    try:
+        for i, g in enumerate(grays):
+            s.track_monocular(g)
+            if init is None and s.state == "OK":
+                init = i
+    finally:
+        mono.initialize_mono = initializer.initialize_mono
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = hc.hamming_kernel.launches
+    tr = s.tracker
+    n_pts = int(tr.map.pt_valid.sum())
+    if init is None:
+        raise AssertionError("mono: never initialized")
+    gt = seq.poses.cpu().numpy()
+    est_wc = se3.se3_inverse(torch.as_tensor(tr.poses_cw()[init:])).numpy()
+    rmse = ate.ate_rmse(est_wc, gt[init:], with_scale=True)[0]
+    span = float(np.linalg.norm(gt[init:, 4:7].max(0)
+                                - gt[init:, 4:7].min(0)))
+    gate = MONO_ATE_FACTOR * max(span, 1.0)
+    args, out = calls[-1][0], calls[-1][1]      # the accepted attempt
+    init_ms = [a.elapsed_time(b) for _, _, a, b in calls]
+    alone_ms = _event_ms(lambda: initializer.initialize_mono(*args[:4],
+                                                             samples=args[4]),
+                         runs=10)
+    # every attempt again on the CPU, same matches and draws; and the sign
+    # of each hypothesis' DLT null vector from the two devices' SVDs
+    def dlt_nulls(p1, p2, valid, samples):
+        """The H and F hypotheses' DLT matrices, as initialize_mono makes
+        them, on the inputs' device."""
+        order = torch.argsort((~valid).to(torch.uint8), stable=True)
+        a1 = initializer._normalize_pts(p1)[0]
+        a2 = initializer._normalize_pts(p2)[0]
+        sf, sh = (order[x] for x in samples)
+        return (initializer._dlt_homography(a1[sh], a2[sh]).cpu(),
+                initializer._dlt_fundamental(a1[sf], a2[sf]).cpu())
+
+    ok_diff = used_h_diff = same_h = same_f = n_hyp = 0
+    for (cam, *card_in), card, _, _ in calls:
+        host_in = [x.cpu() for x in card_in[:3]] + [
+            tuple(x.cpu() for x in card_in[3])]
+        cpu = initializer.initialize_mono(cam, *host_in[:3],
+                                          samples=host_in[3])
+        ok_diff += bool(cpu["ok"]) != bool(card["ok"])
+        used_h_diff += bool(cpu["used_H"]) != bool(card["used_H"])
+        (card_h, card_f), (cpu_h, cpu_f) = (dlt_nulls(*card_in),
+                                            dlt_nulls(*host_in))
+        same_h += int(((card_h * cpu_h).sum((1, 2)) > 0).sum())
+        same_f += int(((card_f * cpu_f).sum((1, 2)) > 0).sum())
+        n_hyp += card_h.shape[0]
+    cpu = initializer.initialize_mono(
+        args[0], *(x.cpu() for x in args[1:4]),
+        samples=tuple(x.cpu() for x in args[4]))
+    t21_gap = float((cpu["T21"] - out["T21"].cpu()).abs().max())
+    good_flips = int((cpu["good"] != out["good"].cpu()).sum())
+    groups = timer.groups()
+    track = [g["track"] for g in groups[init + 1:]]
+    print(f"[mono] {n_frames} frames {cfg.camera.width}x"
+          f"{cfg.camera.height}, System.monocular(...).track_monocular in "
+          f"{run_s:.2f} s: initialized at frame {init} after {len(calls)} "
+          f"initialize_mono call(s), used_H {bool(out['used_H'])}, rh "
+          f"{float(out['rh']):.4f}, state {s.state}, {tr.n_kf} keyframes, "
+          f"{n_pts} valid points, Sim(3)-aligned ATE {rmse:.5f} m (gate "
+          f"{gate:.4f} m over a {span:.3f} m span), K1 launches {launches} "
+          f"({launches / n_frames:.2f}/frame)")
+    print(f"[mono] initialize_mono (200 F + 200 H hypotheses): "
+          f"{np.median(init_ms):.3f} ms in the run, {alone_ms:.3f} ms alone "
+          f"(CUDA events, eager); the same matches and draws on the CPU: "
+          f"ok {bool(cpu['ok'])} / card {bool(out['ok'])}, used_H "
+          f"{bool(cpu['used_H'])} / {bool(out['used_H'])}, T21 within "
+          f"{t21_gap:.3g}, good flags differing {good_flips}; track per "
+          f"frame after initialization (median, CUDA events) "
+          f"{np.median(track):.3f} ms")
+    print(f"[mono] all {len(calls)} initialize_mono calls again on the CPU "
+          f"(same matches and draws): ok differs on {ok_diff}, used_H on "
+          f"{used_h_diff}; the card's SVD returns the DLT null vector with "
+          f"the CPU's sign for {same_h} of {n_hyp} H and {same_f} of "
+          f"{n_hyp} F hypotheses")
+    if not init < MONO_INIT_BEFORE or s.state != "OK":
+        raise AssertionError(f"mono: initialized at {init}, state {s.state}")
+    if n_pts <= MONO_MIN_POINTS or not rmse < gate:
+        raise AssertionError(f"mono: {n_pts} points, ATE {rmse:.4f} m")
+    if launches < 1:
+        raise AssertionError("mono: K1 never launched")
+
+
+# the summary keys of sgslam_tpu/run_tum.py (per frame, chunked)
+CLI_KEYS = ["frames", "fps", "wall_s", "median_track_ms", "state",
+            "keyframes", "loops_closed", "ate_rmse_m", "trajectory"]
+CLI_CHUNKED_KEYS = ["mode", "frames", "fps", "wall_s", "state", "keyframes",
+                    "lost_frames", "loops_closed", "relocalizations",
+                    "objects", "ate_rmse_m", "trajectory"]
+
+
+def phase_cli(dev, n_frames=CLI_FRAMES):
+    """`python -m sgslam_tpu_torch.run_tum` on the card, per frame and
+    chunked, on a synthetic TUM-layout dataset that the first call writes
+    (default flags: the detector, the cull, loop closing and the mapper)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from sgslam_tpu_torch import run_tum
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seq_dir = os.path.join(tmp, "seq")
+        for extra, keys in (([], CLI_KEYS), (["--chunked"], CLI_CHUNKED_KEYS)):
+            argv = ["--synthetic", str(n_frames), "--seq-dir", seq_dir,
+                    "--out", os.path.join(tmp, "out_chunked" if extra
+                                          else "out")]
+            hc.hamming_kernel.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                result = run_tum.main(argv + extra)
+            wall = time.perf_counter() - t0
+            lines = buf.getvalue().strip().splitlines()
+            printed = json.loads(lines[-1])
+            launches = hc.hamming_kernel.launches
+            print(f"[cli] run_tum {' '.join(argv[:2] + extra)} in "
+                  f"{wall:.2f} s, K1 launches {launches}: {lines[-1]}")
+            if printed != result or list(printed) != keys:
+                raise AssertionError(f"run_tum summary keys {list(printed)}")
+            if printed["frames"] != n_frames or printed["state"] != "OK":
+                raise AssertionError(f"run_tum: {printed}")
+            if printed["ate_rmse_m"] is None or not (
+                    printed["ate_rmse_m"] < CLI_ATE_GATE_M):
+                raise AssertionError(f"run_tum ATE: {printed}")
+            if launches < n_frames:
+                raise AssertionError(f"run_tum: K1 launched {launches} "
+                                     "times: the run did not use the card")
+            traj = np.loadtxt(printed["trajectory"])
+            if traj.shape != (n_frames, 8) or not np.isfinite(traj).all():
+                raise AssertionError(f"run_tum trajectory {traj.shape}")
+
 
 def main() -> int:
     try:
@@ -1408,7 +1774,7 @@ def main() -> int:
     t_start = time.perf_counter()
     shapes = k1_shapes([config.synthetic_config(640, 480), eval_config(),
                         capacity_config(), semantic_config(),
-                        objects_config(), kidnap_config()])
+                        objects_config(), kidnap_config(), mono_config()])
     popc = phase_build()
     max_err = phase_k1_parity(dev, rng, shapes)
     rate = phase_popc_rate(dev, popc)
@@ -1424,6 +1790,9 @@ def main() -> int:
     phase_loop_closing(dev)
     phase_forced_loop(dev)
     phase_relocalization(dev)
+    phase_stereo(dev)
+    phase_mono(dev)
+    phase_cli(dev)
     if any(k["launches"] < 1 for k in kernels.values()):
         raise AssertionError("a kernel of the path was never launched")
     if "jax" in sys.modules or "sgslam_tpu" in sys.modules:

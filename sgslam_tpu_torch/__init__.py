@@ -4,9 +4,11 @@ The sub-packages mirror `sgslam_tpu` module for module, so each function has
 a counterpart of the same name. The port imports `torch` and numpy, never
 `jax` and nothing of `sgslam_tpu`.
 
-Entry points (`slam.tracking.Tracker`, `extract_frame`, `track_step`,
-`io.synthetic.SyntheticSequence`) run on the GPU unless the caller passes
-`device="cpu"`; there is no silent fallback from one to the other.
+Entry points (`slam.system.System`, `slam.tracking.Tracker`,
+`slam.mono.MonoTracker`, the chunked runners, `io.synthetic.
+SyntheticSequence`, `io.tum.TumSequence`) run on the GPU unless the caller
+passes `device="cpu"` (`python -m sgslam_tpu_torch.run_tum --cpu`); there
+is no silent fallback from one to the other.
 """
 
 from __future__ import annotations

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from . import linalg
+
 _EPS = 1e-8
 
 
@@ -348,5 +350,5 @@ def sim3_log(S):
         e = eye[i].expand(w.shape)
         cols.append(sim3_exp(torch.cat([e, w, sigma], dim=-1))[..., 4:7])
     W = torch.stack(cols, dim=-1)          # [..., 3, 3], W e_i as columns
-    v = torch.linalg.solve(W, S[..., 4:7, None])[..., 0]
+    v = linalg.solve(W, S[..., 4:7, None])[..., 0]
     return torch.cat([v, w, sigma], dim=-1)

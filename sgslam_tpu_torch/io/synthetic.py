@@ -1,6 +1,6 @@
 """Procedural synthetic RGB-D sequence renderer with exact ground truth.
 
-Port of `sgslam_tpu/io/synthetic.py` (all but `frame_stereo`): per-pixel
+Port of `sgslam_tpu/io/synthetic.py` (every function): per-pixel
 ray casting against the textured planes of a room, walking person capsules
 and semantic props on fronto-parallel planes, and the camera walks. Frames
 come out on the sequence's device, so a GPU run needs no JAX and no
@@ -489,6 +489,24 @@ class SyntheticSequence:
         """GT pixel box + visibility of prop q at frame i."""
         return prop_gt_box(self.cam, se3.se3_inverse(self.poses[i]),
                            self.props[q])
+
+    def frame_stereo(self, i: int):
+        """Rectified stereo pair (gray_left, gray_right, depth_left),
+        rendered on the sequence's device: the right camera sits baseline =
+        bf/fx to the left camera's +x (the rectified-pair geometry of
+        Frame.cc:87-127). People and props are not drawn, as in the
+        reference; `dynamic` draws its one walker."""
+        b = self.cam.bf / self.cam.fx
+        T_wc_l = self.poses[i]
+        T_wc_r = se3.se3_compose(T_wc_l, se3.se3_make(
+            torch.tensor([1.0, 0.0, 0.0, 0.0], device=self.device),
+            torch.tensor([b, 0.0, 0.0], device=self.device)))
+        obj_c = self.obj[i] if self.dynamic else None
+        gl, dl = render_frame(self.cam, T_wc_l, obj_c, obj_half=0.55,
+                              planes=self.planes)
+        gr, _ = render_frame(self.cam, T_wc_r, obj_c, obj_half=0.55,
+                             planes=self.planes)
+        return gl, gr, dl
 
     def gt_pose_wc(self, i: int):
         return self.poses[i]

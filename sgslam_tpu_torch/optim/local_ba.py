@@ -28,7 +28,7 @@ import dataclasses
 
 import torch
 
-from ..geometry import se3
+from ..geometry import linalg, se3
 from ..geometry.camera import Camera
 
 CHI2_MONO = 5.991
@@ -198,7 +198,7 @@ def bundle_adjust(cam: Camera, prob: BAProblem, *, iters1: int = 5,
         Sd = S.reshape(C * 6, C * 6)
         diag_s = torch.diagonal(Sd)
         Sd = Sd + torch.diag(lam * diag_s + 1e-4)
-        dc = torch.linalg.solve(Sd, -rhs.reshape(-1)).reshape(C, 6)
+        dc = linalg.solve(Sd, -rhs.reshape(-1)).reshape(C, 6)
         dc = torch.where(cam_opt, dc, 0.0)
         dp = -torch.einsum("pst,pt->ps", Hpp_inv,
                            bp + torch.einsum("cpis,ci->ps", A, dc))

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..geometry import se3
+from ..geometry import linalg, se3
 from ..geometry.camera import Camera, project
 from ..geometry.epipolar import draw_ranks
 from .pose_opt import pose_optimization
@@ -32,9 +32,9 @@ def dlt_pose(pw, uv, cam: Camera):
     r1 = torch.cat([Xh, zeros, -x[..., None] * Xh], -1)
     r2 = torch.cat([zeros, Xh, -y[..., None] * Xh], -1)
     A = torch.cat([r1, r2], -2)                             # [..., 2M, 12]
-    _, _, Vt = torch.linalg.svd(A, full_matrices=True)
+    _, _, Vt = linalg.svd(A, full_matrices=True)
     P = Vt[..., -1, :].reshape(*Vt.shape[:-2], 3, 4)
-    U, S, Vt2 = torch.linalg.svd(P[..., :3])
+    U, S, Vt2 = linalg.svd(P[..., :3])
     d = torch.linalg.det(U @ Vt2)
     D = torch.ones(d.shape + (3,), dtype=d.dtype, device=d.device)
     D = torch.cat([D[..., :2], d[..., None]], -1)

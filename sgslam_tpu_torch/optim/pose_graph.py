@@ -13,7 +13,7 @@ The normal equations are one dense [7K, 7K] system, as in the reference: the
 block scatter `H.at[edge_i, :, edge_j, :].add(...)` becomes one
 `index_put_(accumulate=True)` at row 7*i + r, column 7*j + c. Fixed and
 unused keyframes get a 1e8 penalty on their diagonal, and the system is
-solved by LU (`torch.linalg.solve`) at the full keyframe capacity (3584 rows
+solved by LU (`geometry.linalg.solve`) at the full keyframe capacity (3584 rows
 for 512 slots). LU on the card and LAPACK's on the CPU round differently, so
 results agree to f32 tolerance, not bit for bit.
 """
@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..geometry import se3
+from ..geometry import linalg, se3
 
 
 def edge_residual(S_i, S_j, S_meas_ij):
@@ -111,7 +111,7 @@ def optimize_pose_graph(poses, pose_valid, fixed_mask, edge_i, edge_j,
         b.index_add_(0, b_rows, torch.cat([
             torch.einsum("eri,er,e->ei", Ji, r, w),
             torch.einsum("eri,er,e->ei", Jj, r, w)]).reshape(-1))
-        dx = torch.linalg.solve(H, -b).reshape(K, 7)
+        dx = linalg.solve(H, -b).reshape(K, 7)
         dx = torch.where(free[:, None], dx, 0.0)
         poses = se3.sim3_compose(se3.sim3_exp(dx), poses)
         if fix_scale:

@@ -5,7 +5,7 @@ contract): Gauss-Newton on the (u, v, u_right) pseudo-stereo residual, or
 the 2-D mono residual where u_right < 0, with Huber weights in the first two
 rounds and chi2 gating between rounds. The fixed-count loops are Python
 loops. The guarded step's accept test is a `torch.where` on the device, so a
-round costs no host round trip; the 6x6 solve is `torch.linalg.solve_ex`
+round costs no host round trip; the 6x6 solve is `geometry.linalg.solve`
 in float32, which checks no error flag and so does not wait for the device.
 """
 
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..geometry import se3
+from ..geometry import linalg, se3
 from ..geometry.camera import Camera
 
 CHI2_MONO = 5.991
@@ -96,7 +96,7 @@ def pose_optimization(cam: Camera, Tcw0, pw, obs, inv_sigma2, valid,
             wn = inv_sigma2 * hw * inl_f                        # [N]
             H = torch.einsum("nri,nrj,n->ij", J, J, wn) + eye6  # [6,6]
             b = torch.einsum("nri,nr,n->i", J, r, wn)
-            dx = torch.linalg.solve_ex(H, -b)[0]
+            dx = linalg.solve(H, -b)
             Tnew = se3.se3_compose(se3.se3_exp(dx), Tcw)
             if not guarded:
                 Tcw = Tnew

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..geometry import se3
+from ..geometry import linalg, se3
 from ..geometry.camera import Camera, project
 from ..geometry.epipolar import draw_ranks
 
@@ -41,7 +41,7 @@ def horn_alignment(src, dst, w, fix_scale: bool = True):
         torch.stack([Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy], -1),
         torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz], -1),
     ], -2)
-    _, evecs = torch.linalg.eigh(N)
+    _, evecs = linalg.eigh(N)
     q = evecs[..., :, -1]                                          # max eigval
     # Horn's N yields the src<-dst rotation in this (w, x, y, z) convention:
     # conjugate to get dst = R src
@@ -122,7 +122,7 @@ def optimize_sim3(cam: Camera, S12_0, pts1, pts2, uv1, uv2, valid, *,
                 H = torch.cat([H[:, :6], eye7[:, 6:]], 1)
                 b = torch.cat([b[:6], torch.zeros_like(b[6:])])
             H = H + 1e-5 * eye7
-            delta = torch.linalg.solve(H, -b)
+            delta = linalg.solve(H, -b)
             S12 = se3.sim3_compose(se3.sim3_exp(delta), S12)
         e1, e2 = _two_way_chi2(cam, S12, pts1, pts2, uv1, uv2)
         inlier = valid & (e1 < chi2) & (e2 < chi2)

@@ -48,8 +48,10 @@ seam replay, `draw` per cull), so tests replay the reference's
 `jax.random` keys. A chunk never writes into the map it is given (every
 map update builds new tensors), so the seam replay needs no copy.
 
-`ChunkedStereoTracker` and `ChunkedSemanticStereoTracker` wait for the
-stereo extractor (ROADMAP item 13) and raise.
+The stereo runners (`ChunkedStereoTracker`, `ChunkedSemanticStereoTracker`)
+take (lefts, rights) where the RGB-D ones take (grays, depths): extraction
+is `tracking.extract_frame_stereo`, and the detector and the cull see the
+left image.
 """
 
 from __future__ import annotations
@@ -71,10 +73,6 @@ from ..semantic.dynamic import Boxes
 from . import tracking
 from .loop_closing import _finish_fetch, _start_fetch
 from .tracking import _as_tensor
-
-_STEREO = ("chunked stereo tracking: not ported yet (ROADMAP item 13, the "
-           "stereo extractor)")
-
 
 class GeneratorKeys:
     """The default F-RANSAC keys of a chunk: integer seeds, split on the
@@ -144,20 +142,22 @@ def make_track_chunk(cfg: SlamConfig, detector=None, semantic: bool = False,
     feats_last is the last frame's culled features. n_live < chunk
     suppresses keyframe flags on the padded rows of a tail chunk;
     only_tracking=True never flags one (localization mode). `extract(cfg,
-    gray, depth, device)` replaces `tracking.extract_frame` (tests feed both
+    gray, depth, device)` replaces `tracking.extract_frame` (or
+    `extract_frame_stereo`; tests feed both
     packages the same features). `on_stage(name)`, if given, is
     called with "begin" and after "extract", "detector", "cull", "track"
     and each insertion round's "insert1", "retrack1", "insert2",
-    "retrack2" (for timing)."""
-    if stereo:
-        raise NotImplementedError(_STEREO)
+    "retrack2" (for timing). stereo=True reads (grays, depths) as the
+    rectified (left, right) pairs and extracts with
+    `tracking.extract_frame_stereo` (depth from the SAD search)."""
     dev = resolve_device(device)
     keys = keys if keys is not None else GeneratorKeys()
     t = cfg.tracker
     B = cfg.detector.max_boxes
     W, H = cfg.camera.width, cfg.camera.height
     mark = on_stage or (lambda name: None)
-    extract = extract or tracking.extract_frame
+    extract = extract or (tracking.extract_frame_stereo if stereo
+                          else tracking.extract_frame)
 
     def chunk_fn(m, carry: TrackCarry, grays, depths, n_live=None):
         grays = _as_tensor(grays, dev).to(torch.float32)
@@ -325,14 +325,14 @@ class _ChunkRunnerBase:
                  pipeline_depth: int = 0, fetch_every: int | None = None,
                  loop=None, mapper=None, only_tracking: bool = False,
                  device="cuda", sampler=None, keys=None, extract=None):
-        if self.stereo:
-            if mapper is not None:
-                raise ValueError(
-                    "stereo chunked tracking cannot drive the "
-                    "SemanticMapper: keyframe events carry the right image, "
-                    "not a depth map — run RGB-D, or map from an external "
-                    "depth source")
-            raise NotImplementedError(_STEREO)
+        if self.stereo and mapper is not None:
+            # the stereo chunk carries the right image where the RGB-D one
+            # carries metric depth; the mapper would back-project intensity
+            # values as meters
+            raise ValueError(
+                "stereo chunked tracking cannot drive the SemanticMapper: "
+                "keyframe events carry the right image, not a depth map — "
+                "run RGB-D, or map from an external depth source")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.chunk = chunk
@@ -343,7 +343,8 @@ class _ChunkRunnerBase:
         self.mapper = mapper
         self.only_tracking = only_tracking
         self.keys = keys if keys is not None else GeneratorKeys()
-        self._extract = extract or tracking.extract_frame
+        self._extract = extract or (tracking.extract_frame_stereo
+                                    if self.stereo else tracking.extract_frame)
         if loop is not None:
             # a keyframe event still waiting in the drain window preempts
             # the post-loop GBA beyond its first 10 iterations
@@ -356,6 +357,7 @@ class _ChunkRunnerBase:
         if loop is not None:
             self.inner.on_compaction = loop.remap_keyframes
         self._fn = make_track_chunk(cfg, detector, semantic=self.semantic,
+                                    stereo=self.stereo,
                                     only_tracking=only_tracking,
                                     keys=self.keys, device=self.device,
                                     on_stage=self._chunk_mark,
@@ -393,6 +395,7 @@ class _ChunkRunnerBase:
 
     # -- bootstrap: the per-frame path until the map initializes --
     def bootstrap(self, gray, depth):
+        """For stereo runners, (gray, depth) is the (left, right) pair."""
         cfg = self.cfg
         gray = _as_tensor(gray, self.device).to(torch.float32)
         depth = _as_tensor(depth, self.device).to(torch.float32)
@@ -407,7 +410,7 @@ class _ChunkRunnerBase:
                 gray, feats, cull_b,
                 map_initialized=self.inner.state != "NOT_INITIALIZED")
         self._frontend.push(gray, feats_raw, dyn_b)
-        self.inner.process(gray, depth, feats=feats)
+        self.inner.process(gray, None if self.stereo else depth, feats=feats)
         # localization-only resume: recover through the keyframe database
         if self.inner.state == "LOST" and self.loop is not None:
             T, _ = self.loop.relocalize(self.inner.map, feats)
@@ -788,22 +791,35 @@ class ChunkedSemanticTracker(_ChunkRunnerBase):
 
 
 class ChunkedStereoTracker(_ChunkRunnerBase):
-    """Rectified-stereo chunked SLAM: raises until the stereo extractor is
-    ported (ROADMAP item 13); with a mapper it raises the reference's
-    ValueError first."""
+    """Rectified-stereo chunked SLAM: process_chunk takes (lefts, rights)
+    [chunk, H, W] pairs; depth comes from the in-chunk epipolar SAD search
+    (the stereo Frame constructor on the real-time path)."""
 
+    semantic = False
     stereo = True
 
-    def __init__(self, cfg: SlamConfig, chunk: int = 8, **kw):
-        super().__init__(cfg, detector=None, chunk=chunk, **kw)
+    def __init__(self, cfg: SlamConfig, chunk: int = 8,
+                 pipeline_depth: int = 0, fetch_every: int | None = None,
+                 loop=None, mapper=None, **kw):
+        super().__init__(cfg, detector=None, chunk=chunk,
+                         pipeline_depth=pipeline_depth,
+                         fetch_every=fetch_every, loop=loop, mapper=mapper,
+                         **kw)
 
 
 class ChunkedSemanticStereoTracker(_ChunkRunnerBase):
-    """Semantic + stereo on the chunked path: raises like
-    `ChunkedStereoTracker` (ROADMAP item 13)."""
+    """Semantic + stereo on the real-time path: the detector and the
+    dynamic-feature cull run on the LEFT image while depth comes from the
+    epipolar SAD search (the stereo analogue of the reference's
+    TrackStereo with the Detector2D hand-shake, System.cc:190-239)."""
 
     semantic = True
     stereo = True
 
-    def __init__(self, cfg: SlamConfig, detector, chunk: int = 8, **kw):
-        super().__init__(cfg, detector=detector, chunk=chunk, **kw)
+    def __init__(self, cfg: SlamConfig, detector, chunk: int = 8,
+                 pipeline_depth: int = 0, fetch_every: int | None = None,
+                 loop=None, mapper=None, **kw):
+        super().__init__(cfg, detector=detector, chunk=chunk,
+                         pipeline_depth=pipeline_depth,
+                         fetch_every=fetch_every, loop=loop, mapper=mapper,
+                         **kw)

@@ -9,15 +9,19 @@ BA) and the semantic mapper. The public API is the reference's:
 `track_rgbd`, trajectory savers, reset, shutdown, localization mode,
 checkpoints (with the place-recognition database).
 
-`track_stereo`, `track_monocular` and `monocular` wait for ROADMAP item 13
-and raise. Entry points run on `device` ("cuda" by default).
+`track_stereo` (rectified pairs, depth from `ops/stereo`) and
+`track_monocular` (on a System built by `System.monocular`, whose tracker
+is `slam.mono.MonoTracker`) run the same tracker, back-end and loop closer;
+the semantic mapper stays RGB-D-only, as in the reference. Entry points
+run on `device` ("cuda" by default).
 
 `on_stage(name)`, if set, is called with "begin" at the start of
 `track_rgbd` and after each of its stages ("detector", "extract", "cull",
 "track", "relocalize" when tracking is lost, and "loop_closing" and
-"mapping" on keyframes), for timing with device events; it must not touch
-the state. `sampler` replaces the F-RANSAC draws and `draws` the loop
-closer's (tests replay the reference's).
+"mapping" on keyframes; `track_stereo` and `track_monocular` list
+theirs), for timing with device events; it must not touch the state.
+`sampler` replaces the F-RANSAC draws and `draws` the loop closer's (tests
+replay the reference's).
 """
 
 from __future__ import annotations
@@ -188,17 +192,82 @@ class System:
 
     # ------------------------------------------------------------------
     def track_stereo(self, gray_l, gray_r, rgb=None) -> np.ndarray:
-        raise NotImplementedError(
-            "System.track_stereo: not ported yet (ROADMAP item 13)")
+        """Rectified stereo per-frame API (System::TrackStereo contract,
+        System.cc:190-239): extraction on the left image + epipolar SAD
+        depth from the right, then the identical tracking state machine.
+        The semantic dynamic-feature cull runs on the LEFT image (pass
+        `rgb` to drive the detector; oracle boxes via prev_dynamic_boxes
+        work as in track_rgbd). The loop closer applies unchanged; the
+        semantic mapper needs metric depth and stays RGB-D-only. Stages:
+        "begin", "detector", "extract", "cull", "track", "loop_closing"."""
+        cfg = self.cfg
+        dev = self.device
+        gray_l = _as_tensor(gray_l, dev).to(torch.float32)
+        self.timestamps.append(len(self.timestamps) / cfg.fps)
+        self._mark("begin")
+
+        if self.detector is not None and rgb is not None:
+            with self.metrics.timer("detector"):
+                (_, person_cull, person_map,
+                 objects2d) = self.detector.detect(
+                    _as_tensor(rgb, dev), cfg.camera.width, cfg.camera.height)
+            self.person_cull_boxes = person_cull
+            self.object_boxes = objects2d
+            dynamic_boxes = person_map
+        else:
+            dynamic_boxes = Boxes.empty(cfg.detector.max_boxes, dev)
+        self._mark("detector")
+
+        with self.metrics.timer("extract"):
+            feats = tracking.extract_frame_stereo(cfg, gray_l, gray_r, dev)
+        feats_raw = feats
+        self._mark("extract")
+        if self.enable_semantic:
+            with self.metrics.timer("dynamic_cull"):
+                init_done = (self.tracker.state != "NOT_INITIALIZED"
+                             or self.detector is None)
+                feats = self.frontend.cull(gray_l, feats,
+                                           self.person_cull_boxes,
+                                           map_initialized=init_done)
+        self._mark("cull")
+
+        with self.metrics.timer("track"):
+            Tcw = self.tracker.process(gray_l, None, feats=feats)
+        self.last_feats = feats
+        self._mark("track")
+        self._post_track()
+        self.frontend.push(gray_l, feats_raw, dynamic_boxes)
+        return Tcw
 
     def track_monocular(self, gray) -> np.ndarray:
-        raise NotImplementedError(
-            "System.track_monocular: not ported yet (ROADMAP item 13)")
+        """Monocular per-frame API (System::TrackMonocular contract): the
+        tracker must be a slam.mono.MonoTracker (see System.monocular).
+        Stages: "begin", "track" (extraction included), "loop_closing"."""
+        self.timestamps.append(len(self.timestamps) / self.cfg.fps)
+        self._mark("begin")
+        with self.metrics.timer("track"):
+            Tcw = self.tracker.process_mono(gray)
+        self._mark("track")
+        if self.tracker.state == "OK":
+            self._post_track()
+        return Tcw
 
     @classmethod
     def monocular(cls, cfg: SlamConfig, **kw):
-        raise NotImplementedError(
-            "System.monocular: not ported yet (ROADMAP item 13)")
+        """Construct a System whose tracker runs the monocular pipeline."""
+        from .mono import MonoTracker
+
+        s = cls(cfg, **kw)
+        s.tracker = MonoTracker(cfg, device=s.device)
+        if s.loop is not None:
+            s.tracker.on_compaction = s.loop.remap_keyframes
+        return s
+
+    def _post_track(self):
+        """Shared keyframe side effect of the stereo and monocular paths:
+        loop closing (mapping needs a depth image, so RGB-D only)."""
+        if self.tracker.kf_inserted and self.loop is not None:
+            self._loop_closing()
 
     @property
     def state(self):

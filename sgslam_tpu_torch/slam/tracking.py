@@ -1,7 +1,8 @@
-"""The per-frame RGB-D tracking pipeline, the keyframe back-end, and their
-host state machine.
+"""The per-frame tracking pipeline (RGB-D, stereo, monocular features), the
+keyframe back-end, and their host state machine.
 
-Port of `sgslam_tpu/slam/tracking.py` (`extract_frame`, `track_step`,
+Port of `sgslam_tpu/slam/tracking.py` (`extract_frame`,
+`extract_frame_stereo`, `extract_frame_mono`, `track_step`,
 `local_ba_step`, `local_ba_cov_step`, `process_new_keyframe`, `Tracker`).
 `track_step` is the reference's TrackWithMotionModel + TrackLocalMap
 contract: local-point selection, then two rounds of projective search,
@@ -29,6 +30,7 @@ from ..mapstate import maintenance as mt
 from ..mapstate import mapstate as ms
 from ..matching import search
 from ..ops import orb
+from ..ops import stereo as stereo_ops
 from ..optim import local_ba, pose_opt
 
 NO_POINT = ms.NO_POINT
@@ -48,6 +50,27 @@ def extract_frame(cfg: SlamConfig, gray, depth, device="cuda") -> orb.Features:
     feats = orb.extract(_as_tensor(gray, dev), cfg.orb, cfg.camera)
     return orb.attach_rgbd(feats, _as_tensor(depth, dev).to(torch.float32),
                            cfg.camera)
+
+
+def extract_frame_stereo(cfg: SlamConfig, gray_l, gray_r,
+                         device="cuda") -> orb.Features:
+    """Stereo frame construction: extract on the left image, fill
+    u_right/depth by rectified epipolar SAD search in the right image
+    (the stereo Frame constructor, Frame.cc:87-127 + ComputeStereoMatches
+    Frame.cc:716-890)."""
+    dev = resolve_device(device)
+    gray_l = _as_tensor(gray_l, dev).to(torch.float32)
+    feats = orb.extract(gray_l, cfg.orb, cfg.camera)
+    return stereo_ops.attach_stereo(
+        cfg.camera, feats, gray_l, _as_tensor(gray_r, dev).to(torch.float32))
+
+
+def extract_frame_mono(cfg: SlamConfig, gray, device="cuda") -> orb.Features:
+    """Monocular frame construction: no depth, u_right < 0 everywhere
+    (pose optimization then uses the 2-dof mono residual)."""
+    dev = resolve_device(device)
+    return orb.extract(_as_tensor(gray, dev).to(torch.float32), cfg.orb,
+                       cfg.camera)
 
 
 def _pose_inputs(cfg: SlamConfig, feats: orb.Features, idx):
@@ -311,6 +334,12 @@ class Tracker:
         self.compactions += 1
         if self.on_compaction is not None:
             self.on_compaction(kf_map, kf_valid)
+
+    def process_stereo(self, gray_l, gray_r) -> np.ndarray:
+        """Track one rectified stereo pair (System::TrackStereo role):
+        identical state machine — stereo depth stands in for RGB-D depth."""
+        feats = extract_frame_stereo(self.cfg, gray_l, gray_r, self.device)
+        return self.process(gray_l, None, feats=feats)
 
     def process(self, gray, depth, feats=None) -> np.ndarray:
         """Track one RGB-D frame; returns Tcw [7] (numpy)."""

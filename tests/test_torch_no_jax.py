@@ -27,11 +27,15 @@ sys.meta_path.insert(0, Refuse())
 import sgslam_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sgslam_tpu_torch.__path__,
                                               "sgslam_tpu_torch.")]
-for name in names:
+# the stereo, monocular and dataset-CLI modules by name, then every module
+NAMED = ["ops.stereo", "optim.initializer", "slam.mono", "io.tum",
+         "io.native", "viz", "viewer", "run_tum"]
+missing = [n for n in NAMED if "sgslam_tpu_torch." + n not in names]
+for name in ["sgslam_tpu_torch." + n for n in NAMED] + names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
-print(len(names), "modules;", "forbidden:", bad)
-sys.exit(1 if bad or len(names) < 52 else 0)
+print(len(names), "modules;", "forbidden:", bad, "missing:", missing)
+sys.exit(1 if bad or missing or len(names) < 60 else 0)
 """
 
 

@@ -9,7 +9,7 @@
     reference's features: identical keyframe frames, the reference's gates
     on both;
   * localization-only resume from the reference's checkpoint, and the
-    stereo constructors raising (ROADMAP item 13).
+    stereo constructors' guards.
 
 The port gets the reference's random draws replayed: `Replay` for the
 bootstrap's per-frame cull, `JaxKeys` for the chunk's per-frame keys
@@ -38,6 +38,7 @@ from sgslam_tpu_torch import config as tcfg
 from sgslam_tpu_torch import convert
 from sgslam_tpu_torch.models import detector as tdet
 from sgslam_tpu_torch.slam import scan_pipeline as tsp
+from sgslam_tpu_torch.slam import tracking as ttr
 from sgslam_tpu_torch.slam.loop_closing import LoopCloser as TLoop
 
 
@@ -333,13 +334,15 @@ def test_localization_only_resume_from_reference_checkpoint(tmp_path):
 
 
 def test_stereo_constructors_raise():
+    """The stereo runners are ported (tests/test_torch_stereo_system.py
+    runs them): they build, and they raise only where the reference does,
+    with a mapper (the right image is not a depth map) and, as every entry
+    point, on a CUDA device where there is none."""
     det = tdet.Detector2D(TCFG.detector, pretrained=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsp.ChunkedStereoTracker(TCFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsp.ChunkedSemanticStereoTracker(TCFG, det, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsp.make_track_chunk(TCFG, stereo=True, device="cpu")
+    for ct in (tsp.ChunkedStereoTracker(TCFG, device="cpu"),
+               tsp.ChunkedSemanticStereoTracker(TCFG, det, device="cpu")):
+        assert ct.stereo and ct._extract is ttr.extract_frame_stereo
+    assert callable(tsp.make_track_chunk(TCFG, stereo=True, device="cpu"))
     from sgslam_tpu_torch.mapping.semantic_mapper import SemanticMapper
 
     with pytest.raises(ValueError, match="right image"):

@@ -30,6 +30,7 @@ from sgslam_tpu.slam.system import System as JSystem
 from sgslam_tpu_torch import config as tcfg
 from sgslam_tpu_torch.semantic.dynamic import Boxes
 from sgslam_tpu_torch.slam.loop_closing import LoopCloser
+from sgslam_tpu_torch.slam.mono import MonoTracker
 from sgslam_tpu_torch.slam.system import System as TSystem
 
 
@@ -210,10 +211,19 @@ def test_api(runs, seq, tmp_path):
     sd.load_checkpoint(str(tmp_path / "loop_j.npz"))
     np.testing.assert_array_equal(sd.loop.db_valid.numpy(),
                                   np.asarray(sj.loop.db_valid))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        st.track_stereo(None, None)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TSystem.monocular(TCFG)
+    # the stereo and monocular entry points run (their parity tests are
+    # tests/test_torch_stereo_system.py and tests/test_torch_mono.py)
+    pair = jsyn.SyntheticSequence(JCFG.camera, n_frames=2).frame_stereo(0)
+    ss = TSystem(TCFG, enable_semantic=False, enable_mapping=False,
+                 device="cpu")
+    ss.track_stereo(*(torch.from_numpy(np.array(x)) for x in pair[:2]))
+    assert ss.state == "OK" and ss.tracker.n_kf == 1
+    sm = TSystem.monocular(TCFG, enable_semantic=False, enable_mapping=False,
+                           device="cpu")
+    assert isinstance(sm.tracker, MonoTracker)
+    assert sm.tracker.on_compaction == sm.loop.remap_keyframes
+    Tcw = sm.track_monocular(torch.from_numpy(np.array(pair[0])))
+    assert Tcw.shape == (7,) and sm.state == "NOT_INITIALIZED"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TSystem(TCFG, enable_loop=False)        # default device: cuda

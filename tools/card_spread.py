@@ -11,6 +11,8 @@ relocalization computes.
     python tools/card_spread.py kidnap 4 11 [--device D]
     python tools/card_spread.py reloc-dump OUT.pt [--device D] [--cpu-draws]
     python tools/card_spread.py reloc-replay OUT.pt
+    python tools/card_spread.py mono-draws build/jax_mono_draws.npz  # JAX
+    python tools/card_spread.py mono [--device D] [--draws FILE]
 
 The images move as tools/parity_spread.py moves the reference's (seed s:
 frame i's gray by signs from default_rng(2000 s + i), its depth by
@@ -35,7 +37,17 @@ default_rng(3000 s + i); s = -1 leaves them as rendered).
                 CPU generator's with --cpu-draws);
   reloc-replay  re-runs a dump's PnP (same samples) and `track_step` on the
                 CPU: whether the card's relocalization differs from the
-                CPU's on the same inputs.
+                CPU's on the same inputs;
+  mono-draws    writes the random bits behind the reference MonoTracker's
+                initialization draws (`PRNGKey(17)` split once per attempt,
+                then `initialize_mono`'s split and two `randint`s), for 30
+                attempts (needs JAX);
+  mono          chip_smoke.py phase 14's run (`System.monocular`, 30 frames
+                at 640x480) with the reference's initialization draws
+                replayed from `--draws` (the card's own generator without
+                it): each attempt's outcome, the frame the run initializes
+                at, and again on the CPU each attempt with the same
+                matches and draws.
 """
 
 from __future__ import annotations
@@ -85,14 +97,117 @@ def cmd_draws(out):
 
 def randint_from_bits(bits, seed, n_valid, k):
     """jax.random.randint(PRNGKey(seed), (iters, k), 0, max(n_valid, k))
-    with 32-bit integers, from its random bits: the remainder of the two
-    halves' combination by the span, in uint32 arithmetic."""
-    span = np.uint64(max(int(n_valid), k))
-    hi = bits[f"hi_{k}"][seed].astype(np.uint64)
-    lo = bits[f"lo_{k}"][seed].astype(np.uint64)
+    with 32-bit integers, from its random bits."""
+    return _randint(bits[f"hi_{k}"][seed], bits[f"lo_{k}"][seed],
+                    max(int(n_valid), k))
+
+
+def _randint(hi, lo, span):
+    """`randint(key, shape, 0, span)` from the bits of the key's two
+    halves: the remainder of their combination by the span, in uint32
+    arithmetic."""
+    span = np.uint64(span)
+    hi, lo = hi.astype(np.uint64), lo.astype(np.uint64)
     mult = (np.uint64(65536) % span) ** 2 % span
     off = ((hi % span) * mult + (lo % span)) & np.uint64(0xFFFFFFFF)
     return (off % span).astype(np.int64)
+
+
+MONO_ATTEMPTS = 30
+
+
+def cmd_mono_draws(out):
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    arrays = {n: [] for n in ("hi_f", "lo_f", "hi_h", "lo_h")}
+    key = jax.random.PRNGKey(17)
+    for _ in range(MONO_ATTEMPTS):
+        key, sub = jax.random.split(key)
+        for name, k, m in zip("fh", jax.random.split(sub), (8, 4)):
+            k1, k2 = jax.random.split(k)
+            arrays[f"hi_{name}"].append(np.asarray(
+                jax.random.bits(k1, (200, m), jnp.uint32)))
+            arrays[f"lo_{name}"].append(np.asarray(
+                jax.random.bits(k2, (200, m), jnp.uint32)))
+    np.savez_compressed(out, **{k: np.stack(v) for k, v in arrays.items()})
+    bits = dict(np.load(out))
+    key = jax.random.PRNGKey(17)
+    rng = np.random.default_rng(0)
+    for a in range(MONO_ATTEMPTS):
+        key, sub = jax.random.split(key)
+        kf, kh = jax.random.split(sub)
+        n = int(rng.integers(8, 3000))
+        for name, k, m in (("f", kf, 8), ("h", kh, 4)):
+            want = np.asarray(jax.random.randint(k, (200, m), 0, n))
+            got = _randint(bits[f"hi_{name}"][a], bits[f"lo_{name}"][a], n)
+            if not (got == want).all():
+                raise AssertionError(f"mono draws differ: attempt {a}")
+    print(f"wrote {out}: the reference's MonoTracker draws for "
+          f"{MONO_ATTEMPTS} attempts")
+
+
+def cmd_mono(device, draws_file):
+    import torch
+
+    import chip_smoke as cs
+    from sgslam_tpu_torch.io import synthetic
+    from sgslam_tpu_torch.optim import initializer
+    from sgslam_tpu_torch.slam import mono
+    from sgslam_tpu_torch.slam.system import System
+
+    dev = _setup(device)
+    cfg = cs.mono_config()
+    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=cs.MONO_FRAMES,
+                                      device=dev)
+    s = System.monocular(cfg, enable_semantic=False, enable_mapping=False,
+                         device=dev)
+    if draws_file:
+        bits = dict(np.load(draws_file))
+        attempt = [0]
+
+        def draws(n_valid):
+            a, n = attempt[0], int(n_valid)
+            attempt[0] += 1
+            return tuple(torch.as_tensor(_randint(
+                bits[f"hi_{x}"][a], bits[f"lo_{x}"][a], n), device=dev)
+                for x in "fh")
+
+        s.tracker._draws = draws
+    outcomes = []
+    orig = mono.initialize_mono
+
+    def logged(cam, p1, p2, valid, generator=None, *, iters=200,
+               samples=None):
+        if samples is None:
+            n_valid = torch.clamp(torch.sum(valid.to(torch.int32)), min=8)
+            samples = (initializer.draw_ranks(n_valid, iters, 8, generator),
+                       initializer.draw_ranks(n_valid, iters, 4, generator))
+        out = orig(cam, p1, p2, valid, samples=samples)
+        cpu = orig(cam, *(x.cpu() for x in (p1, p2, valid)),
+                   samples=tuple(x.cpu() for x in samples))
+        outcomes.append((bool(out["ok"]), bool(cpu["ok"]),
+                         bool(out["used_H"]), bool(cpu["used_H"])))
+        return out
+
+    mono.initialize_mono = logged
+    init = None
+    try:
+        for i in range(cs.MONO_FRAMES):
+            s.track_monocular(seq.frame(i)[0])
+            if s.state == "OK":
+                init = i
+                break
+    finally:
+        mono.initialize_mono = orig
+    print(json.dumps({
+        "device": str(dev), "draws": draws_file or "own generator",
+        "initialized_at": init,
+        "attempts (ok here, ok on the CPU, used_H here, on the CPU)":
+            outcomes,
+        "ok differs from the CPU's": sum(o[0] != o[1] for o in outcomes)}))
 
 
 def _setup(device):
@@ -398,6 +513,11 @@ def main() -> int:
     p.add_argument("--cpu-draws", action="store_true")
     p = sub.add_parser("reloc-replay")
     p.add_argument("dump")
+    p = sub.add_parser("mono-draws")
+    p.add_argument("out")
+    p = sub.add_parser("mono")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--draws", default=None)
     a = ap.parse_args()
     if a.cmd == "draws":
         cmd_draws(a.out)
@@ -411,6 +531,10 @@ def main() -> int:
         cmd_kidnap(a.first, a.last, a.device)
     elif a.cmd == "reloc-dump":
         cmd_reloc_dump(a.out, a.device, a.cpu_draws)
+    elif a.cmd == "mono-draws":
+        cmd_mono_draws(a.out)
+    elif a.cmd == "mono":
+        cmd_mono(a.device, a.draws)
     else:
         cmd_reloc_replay(a.dump)
     return 0

@@ -2,7 +2,7 @@
 """How far the JAX reference moves from itself, beside how far the port
 moves from it: the yardstick for the back-end's parity tolerances.
 
-    python tools/parity_spread.py ba|pass|tracker|capacity|main|cull|loop|chunk|reloc [--seeds 3]
+    python tools/parity_spread.py ba|pass|tracker|capacity|main|cull|loop|chunk|reloc|stereo|init|mono [--seeds 3]
 
 Runs on the CPU (JAX and the port's CPU path). Each mode runs the
 reference once as it is, then `--seeds` times with one input moved by one
@@ -52,7 +52,24 @@ and the port once, and prints the gaps:
             exported and as recorded; the port on its own features with
             the reference's draws replayed (and once with its default
             draws), on the same moved images as the reference.
-The loop, chunk and reloc modes reuse the fixtures of the port's test files.
+  stereo    (a) `stereo_match` on four frame pairs of
+            tests/test_torch_stereo.py's walk (input: both images), `ok`
+            flips, u_right / depth gaps and keypoints that move to another
+            disparity, the port on the same keypoints; (b) the stereo runs
+            of tests/test_torch_stereo_system.py (`System.track_stereo`,
+            `ChunkedStereoTracker`, `ChunkedSemanticStereoTracker`; input:
+            both images), ATE and keyframes, the port on its own features
+            with the draws replayed;
+  init      `initialize_mono` on tests/test_mono_stereo.py's three
+            problems (input: the match coordinates), ok / used_H / rh, T21,
+            good flips and the good points' relative gaps, the port with
+            the reference's draws replayed;
+  mono      tests/test_mono_stereo.py's 30-frame `MonoTracker` run (input:
+            the images), initialization frame, keyframes, points and
+            Sim(3)-aligned ATE, the port on its own features and on the
+            reference's, with the initialization draws replayed.
+The loop, chunk, reloc, stereo, init and mono modes reuse the fixtures of
+the port's test files.
 """
 
 from __future__ import annotations
@@ -570,11 +587,167 @@ def mode_reloc(seeds):
                trun(moved, tcl.replay_draws))
 
 
+def mode_stereo(seeds):
+    tst = _test_module("test_torch_stereo")
+    for frame in (3, tst.FRAME, 18, 21):
+        gl, gr, xy, lv, va = tst.stereo_pair(frame)
+        ref = tst.jax_match(gl, gr, xy, lv, va)
+
+        def gaps(name, out):
+            both = ref[2] & out[2]
+            du = np.abs(out[0] - ref[0])[both]
+            dd = np.abs(out[1] - ref[1])[both]
+            jump = (du > tst.TOL_U_RIGHT) | (dd > tst.TOL_DEPTH)
+            rest = (f"{du[~jump].max():.3g} px, {dd[~jump].max():.3g} m"
+                    if (~jump).any() else "-")
+            print(f"  {name}: ok flips {int((out[2] != ref[2]).sum())} of "
+                  f"{int(ref[2].sum())}, jumps {int(jump.sum())} (u_right "
+                  f"up to {du.max():.3g} px), the rest within {rest}")
+
+        print(f"stereo_match, frame {frame}")
+        for s in range(seeds):
+            gaps(f"reference, images moved by one ulp (seed {s})",
+                 tst.jax_match(np.asarray(one_ulp(gl, 2 * s)),
+                               np.asarray(one_ulp(gr, 2 * s + 1)),
+                               xy, lv, va))
+        gaps("port", tst.port_match(gl, gr, xy, lv, va))
+
+    tss = _test_module("test_torch_stereo_system")
+    pairs, gt = tss.stereo_frames(tss.N_SYSTEM)
+    dyn, dyn_gt = tss.stereo_frames(tss.N_SEMANTIC, dynamic=True)
+    gts = {"system": gt, "chunked": gt, "semantic": dyn_gt}
+
+    def report(name, runs):
+        print(name + ": " + ", ".join(
+            f"{k} ATE {tss.ate(tss.summary(r)[0], gts[k]):.4f} m "
+            f"({tss.summary(r)[1]} keyframes)" for k, r in runs.items()))
+
+    def moved(ps, s):
+        return [(np.asarray(one_ulp(a, 2000 * s + i)),
+                 np.asarray(one_ulp(b, 3000 * s + i)))
+                for i, (a, b) in enumerate(ps)]
+
+    report("stereo runs, reference", tss.jax_runs(pairs, dyn))
+    for s in range(seeds):
+        report(f"  reference, images moved by one ulp (seed {s})",
+               tss.jax_runs(moved(pairs, s), moved(dyn, s)))
+    report("  port, own features, the reference's draws",
+           tss.port_runs(pairs, dyn))
+
+
+def mode_init(seeds):
+    ti = _test_module("test_torch_initializer")
+
+    def gaps(name, a, b):
+        g = a["good"] & b["good"]
+        rel = (np.abs(a["points"][g] - b["points"][g]).max(-1)
+               / np.linalg.norm(b["points"][g], axis=-1))
+        print(f"  {name}: ok {bool(a['ok'])}, used_H {bool(a['used_H'])}, "
+              f"rh {abs(float(a['rh']) - float(b['rh'])):.2g}, T21 "
+              f"{np.abs(a['T21'] - b['T21']).max():.3g}, good flips "
+              f"{int((a['good'] != b['good']).sum())}, good points "
+              f"{rel.max() if len(rel) else 0.0:.3g} of their distance")
+
+    for name, (p1, p2, valid, seed) in ti.problems().items():
+        ref = ti.jax_init(p1, p2, valid, seed)
+        print(f"initialize_mono, {name}: reference ok {bool(ref['ok'])}, "
+              f"used_H {bool(ref['used_H'])}, rh {float(ref['rh']):.4f}")
+        for s in range(seeds):
+            gaps(f"reference, matches moved by one ulp (seed {s})",
+                 ti.jax_init(np.asarray(one_ulp(p1, 2 * s)),
+                             np.asarray(one_ulp(p2, 2 * s + 1)), valid,
+                             seed), ref)
+        gaps("port, the reference's draws",
+             ti.port_init(p1, p2, valid, seed), ref)
+
+
+def mode_mono(seeds):
+    from sgslam_tpu.slam import mono as jmono
+
+    tm = _test_module("test_torch_mono")
+    grays, gt = tm.frames()
+
+    def report(name, tracker, feats=None):
+        init, poses = tm.run(tracker, grays, feats)
+        pts = tracker.map.pt_valid
+        n_pts = int(pts.sum()) if torch.is_tensor(pts) else int(
+            np.asarray(pts).sum())
+        print(f"{name}: initialized at frame {init}, state {tracker.state},"
+              f" {tracker.n_kf} keyframes, {n_pts} points, Sim(3)-aligned "
+              f"ATE {tm.sim3_ate(poses, gt, init):.4f} m")
+
+    report("MonoTracker, reference", jmono.MonoTracker(tm.JCFG))
+    for s in range(seeds):
+        moved = [np.asarray(one_ulp(g, 2000 * s + i))
+                 for i, g in enumerate(grays)]
+        init, poses = tm.run(jmono.MonoTracker(tm.JCFG), moved)
+        print(f"  reference, images moved by one ulp (seed {s}): "
+              f"initialized at frame {init}, Sim(3)-aligned ATE "
+              f"{tm.sim3_ate(poses, gt, init):.4f} m")
+    report("  port, own features", tm.port_tracker())
+    feats = [convert.features_from_numpy(tm._np_fields(
+        jtr.extract_frame_mono(tm.JCFG, jnp.asarray(g)))) for g in grays]
+    report("  port, the reference's features", tm.port_tracker(), feats)
+
+    # full width (chip_smoke.py phase 14's configuration): the frame the
+    # run initializes at, and each attempt's outcome
+    from sgslam_tpu_torch.slam import mono as tmono
+
+    def full(c):
+        return c.synthetic_config(640, 480, tracker=c.TrackerConfig(
+            max_frames_between_kf=2, depth_threshold_factor=70.0))
+
+    seq = jsyn.SyntheticSequence(full(jcfg).camera, n_frames=30)
+    big = [np.asarray(seq.frame(i)[0]) for i in range(30)]
+
+    def init_frame(tracker, frames):
+        attempts = []
+        module = jmono if isinstance(tracker, jmono.MonoTracker) else tmono
+        orig = module.initialize_mono
+
+        def logged(*a, **k):
+            out = orig(*a, **k)
+            attempts.append("ok" if bool(out["ok"]) else "rejected")
+            return out
+
+        module.initialize_mono = logged
+        try:
+            for i, g in enumerate(frames):
+                tracker.process_mono(g)
+                if tracker.state == "OK":
+                    return i, attempts
+        finally:
+            module.initialize_mono = orig
+        return None, attempts
+
+    def show(name, res, ref=None):
+        frame, attempts = res
+        flips = ("" if ref is None else f", outcome differs from the "
+                 f"unmoved run's on {sum(a != b for a, b in zip(attempts, ref))}"
+                 f" of {min(len(attempts), len(ref))} attempts")
+        print(f"  {name}: initialized at frame {frame}, attempts "
+              f"{' '.join(attempts)}{flips}")
+
+    print("MonoTracker at 640x480 (chip_smoke.py phase 14's 30-frame "
+          "sequence), the initialization frame and each initialize_mono "
+          "call's outcome:")
+    ref = init_frame(jmono.MonoTracker(full(jcfg)), big)
+    show("reference", ref)
+    for s in range(seeds):
+        moved = [np.asarray(one_ulp(g, 2000 * s + i))
+                 for i, g in enumerate(big)]
+        show(f"reference, images moved by one ulp (seed {s})",
+             init_frame(jmono.MonoTracker(full(jcfg)), moved), ref[1])
+    show("port, own features, the reference's draws", init_frame(
+        tmono.MonoTracker(full(tcfg), draws=tm.ReplayInit(), device="cpu"),
+        big), ref[1])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=["ba", "pass", "tracker", "capacity",
                                      "main", "cull", "loop", "chunk",
-                                     "reloc"])
+                                     "reloc", "stereo", "init", "mono"])
     ap.add_argument("--seeds", type=int, default=3)
     args = ap.parse_args()
     torch.set_num_threads(1)
@@ -592,6 +765,12 @@ def main() -> int:
         mode_chunk(args.seeds)
     elif args.mode == "reloc":
         mode_reloc(args.seeds)
+    elif args.mode == "stereo":
+        mode_stereo(args.seeds)
+    elif args.mode == "init":
+        mode_init(args.seeds)
+    elif args.mode == "mono":
+        mode_mono(args.seeds)
     else:
         mode_sequence(args.seeds, args.mode == "capacity")
     return 0
