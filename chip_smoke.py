@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run if it fails:
-  1. build every CUDA source of the port (`csrc/hamming.cu`, K1, and
+  1. build every CUDA source of the port (`csrc/hamming.cu`, K1,
+     `csrc/segment_sum.cu`, the deterministic segment sum, and
      `csrc/popc_bench.cu`, the popc-rate microbenchmark), one nvcc each,
      started together;
   2. hold K1 against its plain PyTorch version on the card at every shape
@@ -25,7 +26,8 @@ Phases, each of which fails the run if it fails:
      keypoints, 288 keyframe slots, 32768 points, window 16+8, 4096 local
      points) through `process_new_keyframe` on the card and through the
      port on the CPU; integer outputs equal, poses and points within the
-     parity tests' tolerances;
+     parity tests' tolerances; the card's three passes must be identical
+     to the bit (the float scatter-adds are segment sums in a fixed order);
   6. capacity pressure at a smaller depth: 120 frames at 320x240 into 24
      keyframe slots, so that map compaction must fire;
   7. the semantic system at full width, the slice's main path:
@@ -62,7 +64,8 @@ Phases, each of which fails the run if it fails:
      .py at 640x480 (a drift injected before the revisit), through `System`
      and `ChunkedTracker`: each must close a loop and the System path must
      halve its keyframe ATE, with the essential graph, the fusion and each
-     global-BA slice timed;
+     global-BA slice timed; the chunked run runs twice and must give the
+     same keyframe poses and map points to the bit;
  12. relocalization at 320x240: tests/test_chunked_full_system.py's
      kidnap run through `ChunkedTracker`, as rendered and with its images
      moved by one ulp (four seeds): every run must relocalize, track again
@@ -86,14 +89,30 @@ Phases, each of which fails the run if it fails:
      per frame and `--chunked` (default flags, the `tum3` preset): the
      summary keys of `sgslam_tpu/run_tum.py`, ATE under run_eval's 0.03 m
      static gate, K1 launched on the card;
-  then print the `kernels` line, the card's name and power limit, and last
-  `{"ok": true, "device": ...}`.
-The kernel launch counts are set to 0 just before each of phases 4-8 and
-10-15 (each path of 13 and both calls of 15) and read just after; the
-`kernels` line carries phase 10's (the timed window of bench.py's
-schedule). Phase 7's `System` runs with loop closing
-on (its default), so its frame times include the loop closer's keyframe
-database work.
+ 16. scale-out at world size 1 on NCCL (a file rendezvous under build/):
+     the port's dryrun of the multi-chip contract on `eval_map.npz` (points
+     moved by 0.01 m, 8 LM iterations of the distributed global BA), whose
+     cost must fall; ms per iteration, peak memory and the bytes handed to
+     collectives; one distributed step on the card against the same step on
+     the CPU (a gloo grid beside the NCCL one);
+ 17. detector training: 30 AdamW steps at batch 16 on the card
+     (`train_detector.Trainer`), a finite loss that falls, ms per step; one
+     step card against CPU on the same batch (TF32 off), the gradient gap
+     read on two more seeds and batches, and with the localization term
+     dropped on the card's side, which the limit must catch;
+  then the segment sum against its plain version (to the bit) at every
+  call site and shape that phases 4-17 gave it (the first call of each is
+  recorded), the lengths of its segments per phase and site, and its time
+  at phase 10's most launched shape and at the shape with the longest
+  segments; then print the `kernels` line, the card's name and power
+  limit, and last `{"ok": true, "device": ...}`.
+Both kernels' launch counts are set to 0 just before each path of phases
+4-8 and 10-16 (each run of 11 and 12, each path of 13, both calls of 15)
+and read just after; each path that runs the BA, the pose graph or the
+mapper must have launched the segment sum. The `kernels` line carries
+phase 10's counts (the timed window of bench.py's schedule). Phase 7's
+`System` runs with loop closing on (its default), so its frame times
+include the loop closer's keyframe database work.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. It imports nothing of JAX.
@@ -111,8 +130,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# H100 SXM published HBM3 bandwidth.
+# H100 SXM published HBM3 bandwidth and float32 rate outside the tensor
+# cores.
 HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 # Documented popc throughput of compute capability 9.0, per clock per SM.
 # K1's bound uses the higher of this rate (at the card's maximum SM clock)
 # and the one phase 3 measures, so that the bound is never flattered.
@@ -178,6 +199,27 @@ TOL_DET_BOX = 1e-4
 TOL_DET_SCORE = 1e-4
 MAX_KEEP_FLIPS = 64
 MAX_INLIER_GAP = 7
+# phase 16: the dryrun's LM budget; one distributed step card vs CPU at the
+# damping where the eval map's first step is accepted (three rejections of
+# the default 1e-3, each x4): poses within 1e-4, points within 1e-3 m at the
+# median (f32 reduced systems summed in other orders, then a 840 x 840
+# solve)
+SCALE_OUT_ITERS = 8
+SCALE_OUT_STEP_LAM = 1e-3 * 4 ** 3
+TOL_STEP_POSE = 1e-4
+TOL_STEP_POINT_MEDIAN = 1e-3
+# phase 17: detector training; card vs CPU on one batch (TF32 off): the
+# loss within 1e-4 relative; gradients within 2e-2 of each tensor's largest
+# entry (cuDNN's backward sums 16 x 150 x 150 products per stem entry in an
+# order of its choosing, against oneDNN's on the CPU). Readings on the H100
+# at seeds and batches (0, 0), (1, 3), (2, 6): 6.9e-3, 1.5e-3, 4.7e-4; with
+# the localization term dropped on the card's side: 1.91. The limit sits
+# between the two. AdamW given the same gradients within 2.5e-7
+TRAIN_STEPS, TRAIN_BATCH = 30, 16
+TRAIN_GRAD_READINGS = [(1, 3), (2, 6)]     # (seed, batch) beside (0, 0)
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_GRAD = 2e-2
+TOL_TRAIN_UPDATE = 2.5e-7
 
 
 def _fail(msg: str) -> int:
@@ -242,16 +284,20 @@ def _unpack_bits(x):
 
 
 def phase_build():
-    """Build both CUDA sources at once (nvcc runs outside the GIL); load
-    K1 and return the ctypes handle of the popc microbenchmark."""
+    """Build every CUDA source at once (nvcc runs outside the GIL); load
+    K1 and the segment sum and return the ctypes handle of the popc
+    microbenchmark."""
     from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.ops import segment
 
     t0 = time.perf_counter()
-    sources = [hc.CSRC / "hamming.cu", hc.CSRC / "popc_bench.cu"]
+    sources = [hc.CSRC / "hamming.cu", hc.CSRC / "segment_sum.cu",
+               hc.CSRC / "popc_bench.cu"]
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(lambda s: hc.build_library(True, s), sources))
     hc.hamming_kernel.load()
-    popc = ctypes.CDLL(str(libs[1]))
+    segment.segment_kernel.load()
+    popc = ctypes.CDLL(str(libs[2]))
     popc.sgslam_popc_bench.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_void_p]
     popc.sgslam_popc_bench.restype = ctypes.c_int
@@ -402,6 +448,192 @@ def phase_k1_time(dev, rng, popc_rate: float, max_err: int, shapes):
             "library_ms": library_ms}
 
 
+class SegmentInputs:
+    """Stands in for `ops.segment.segment_kernel` for the whole run: every
+    call goes to the kernel (which counts its launches). Per phase and call
+    site it counts the calls and, on the card without a host read, the
+    segments' lengths (the longest, and how many fall in each power of
+    two); the inputs of the first call of each site and shape are kept for
+    `phase_segment`."""
+
+    BUCKETS = 24
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.phase = "-"
+        self.inputs = {}
+        self.calls = {}
+        self.lengths = {}
+
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.kernel.launches = value
+
+    def load(self, verbose: bool = False):
+        return self.kernel.load(verbose)
+
+    def __call__(self, values, index, n, init=None):
+        import torch
+
+        code = sys._getframe(2).f_code      # the caller of segment_sum
+        root = os.path.dirname(os.path.abspath(__file__))
+        site = f"{os.path.relpath(code.co_filename, root)}:{code.co_name}"
+        key = (site, tuple(values.shape), n, init is not None)
+        pk = (self.phase, site)
+        self.calls[pk] = self.calls.get(pk, 0) + 1
+        self.calls[(self.phase, key)] = self.calls.get((self.phase, key),
+                                                       0) + 1
+        if key not in self.inputs:
+            self.inputs[key] = (self.phase, values.clone(), index.clone(), n,
+                                None if init is None else init.clone())
+        idx = torch.where((index >= 0) & (index < n), index.long(), n)
+        cnt = torch.zeros(n + 1, dtype=torch.int64, device=index.device)
+        cnt = cnt.scatter_add_(0, idx, torch.ones_like(idx))[:n]
+        bucket = torch.floor(torch.log2(cnt.clamp(min=1).double())).long()
+        hist, longest = self.lengths.get(pk, (None, None))
+        if hist is None:
+            hist = torch.zeros(self.BUCKETS, dtype=torch.int64,
+                               device=index.device)
+            longest = torch.zeros((), dtype=torch.int64, device=index.device)
+        hist = hist.scatter_add_(0, bucket.clamp(max=self.BUCKETS - 1),
+                                 (cnt > 0).long())
+        self.lengths[pk] = (hist, torch.maximum(longest, cnt.max()))
+        return self.kernel(values, index, n, init)
+
+
+def phase_segment(dev, rec: SegmentInputs, launches: int):
+    """The segment sum against its plain version at every site and shape
+    the run gave it (to the bit, on the same inputs copied to the CPU; the
+    plain version on the card sums short segments through atomics, so its
+    gap is printed), the segments' lengths per phase and site, and its time,
+    bound, plain and library times at phase 10's most launched shape and at
+    the shape with the longest segments. Returns its entry of the kernels
+    line."""
+    import torch
+
+    from sgslam_tpu_torch.ops import segment
+
+    k = rec.kernel
+    print("[segment] segment lengths per phase and call site (calls; "
+          "longest; segments of 1, 2-3, 4-7, ... rows):")
+    for (phase, site), (hist, longest) in rec.lengths.items():
+        h = hist.cpu().tolist()
+        while h and h[-1] == 0:
+            h.pop()
+        print(f"[segment]   phase {phase} {site}: {rec.calls[(phase, site)]} "
+              f"calls; longest {int(longest)}; {h}")
+    max_err, longest_key, longest_len = 0.0, None, -1
+    for key, (phase, v, i, n, init) in rec.inputs.items():
+        out = k(v, i, n, init)
+        again = k(v, i, n, init)
+        torch.cuda.synchronize()
+        ref = segment.segment_sum_reference(
+            v.cpu(), i.cpu(), n, None if init is None else init.cpu())
+        plain = segment.segment_sum_reference(v, i, n, init)
+        err = float((out.cpu() - ref).abs().max()) if ref.numel() else 0.0
+        max_err = max(max_err, err)
+        keep = i[(i >= 0) & (i < n)]
+        seg_max = (int(torch.bincount(keep.long()).max()) if keep.numel()
+                   else 0)
+        if seg_max > longest_len:
+            longest_key, longest_len = key, seg_max
+        print(f"[segment] {key[0]} (first in phase {phase}): values "
+              f"{tuple(v.shape)} -> {n} rows"
+              f"{' onto init' if init is not None else ''}, longest segment "
+              f"{seg_max}: repeat {torch.equal(out, again)}, equal to the "
+              f"plain version on the CPU {torch.equal(out.cpu(), ref)}, the "
+              f"plain version on the card within "
+              f"{float((out - plain).abs().max()) if out.numel() else 0:.3g}")
+        if not (torch.equal(out, again) and torch.equal(out.cpu(), ref)):
+            raise AssertionError(f"segment sum differs at {key}")
+
+    def timing(key, label):
+        _, v, i, n, init = rec.inputs[key]
+        rows = v.shape[0]
+        cols = v[0].numel() if rows else 1
+        # the library calls: index_add_ (atomics) and index_put_ with
+        # accumulate (sorts), the dropped rows sent to a spare row
+        spare = torch.where((i >= 0) & (i < n), i, n).long()
+        base = torch.zeros((n + 1,) + tuple(v.shape[1:]), dtype=v.dtype,
+                           device=dev)
+        if init is not None:
+            base[:n] = init
+        lib_out = base.clone()
+
+        def index_add():
+            lib_out.copy_(base).index_add_(0, spare, v)
+
+        def index_put():
+            lib_out.copy_(base).index_put_((spare,), v, accumulate=True)
+
+        put = [base.clone().index_put_((spare,), v, accumulate=True)
+               for _ in range(3)]
+        put_repeats = all(torch.equal(put[0], p) for p in put[1:])
+        ms = _graph_ms(lambda: k(v, i, n, init), calls=20)
+        plain_ms = _event_ms(
+            lambda: segment.segment_sum_reference(v, i, n, init), runs=20)
+        library_ms = _graph_ms(index_add, calls=20)
+        put_ms = _event_ms(index_put, runs=3, warmup=1)   # slow: eager
+        kept = int(((i >= 0) & (i < n)).sum())
+        nbytes = (rows * cols * v.element_size() + rows * i.element_size()
+                  + n * cols * v.element_size() * (2 if init is not None
+                                                   else 1))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = kept * cols / FP32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"[segment] time at {label}, {key[0]}, values "
+              f"{tuple(v.shape)} -> {n} rows: ms={ms:.5f} (the wrapper: "
+              f"stable sort, output, kernels; CUDA-graph replay) "
+              f"bound_ms={bound_ms:.5f} (bytes {bytes_ms:.5f}, adds "
+              f"{ops_ms:.5f}) plain_ms={plain_ms:.5f} (eager; its masks "
+              f"read back) library_ms(index_add_)={library_ms:.5f} "
+              f"index_put_(accumulate=True)={put_ms:.5f} (three calls "
+              f"identical: {put_repeats})")
+        return ms, plain_ms, bound_ms, ops_ms >= bytes_ms, library_ms
+
+    shapes = [(phase, key, c) for (phase, key), c in rec.calls.items()
+              if isinstance(key, tuple)]
+    bench = [x for x in shapes if x[0] == "10"] or shapes
+    phase, top, calls = max(bench, key=lambda x: x[2])
+    ms, plain_ms, bound_ms, by_ops, library_ms = timing(
+        top, f"phase {phase}'s most launched shape ({calls} calls)")
+    if longest_key is not None and longest_key != top:
+        timing(longest_key, f"the longest segments ({longest_len} rows)")
+    return {"name": "segment_sum", "route": "cuda",
+            "source": "sgslam_tpu_torch/csrc/segment_sum.cu",
+            "replaces": "sgslam_tpu/optim/local_ba.py:186",
+            "launches": launches, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if by_ops else "bytes",
+            "library_ms": library_ms}
+
+
+def _zero_counts():
+    """Set K1's and the segment sum's launch counts to 0 before a path."""
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.ops import segment
+
+    hc.hamming_kernel.launches = 0
+    segment.segment_kernel.launches = 0
+
+
+def _segment_count(path: str, least: int = 1) -> int:
+    """Read the segment sum's launch count just after a path, print it,
+    and fail if it is below `least` (every path that runs the BA, the pose
+    graph, the mapper or a keyframe's bag of words launches it)."""
+    from sgslam_tpu_torch.ops import segment
+
+    n = segment.segment_kernel.launches
+    print(f"[segment] {path}: {n} launches")
+    if n < least:
+        raise AssertionError(f"{path}: the segment sum launched {n} times")
+    return n
+
+
 class StageTimer:
     """`Tracker.on_backend_stage` / `process_new_keyframe(on_stage=)` /
     `System.on_stage`: a CUDA event at the start of each back-end pass (or
@@ -480,7 +712,7 @@ def phase_main_path(dev, kernels, cfg=None, n_frames=N_FRAMES):
     timer = StageTimer()
     tr.on_backend_stage = timer
 
-    hc.hamming_kernel.launches = 0
+    _zero_counts()
     extract_ms, track_ms, kf_track_ms = [], [], []
     t_run = time.perf_counter()
     for i, (gray, depth) in enumerate(frames):
@@ -499,6 +731,7 @@ def phase_main_path(dev, kernels, cfg=None, n_frames=N_FRAMES):
     run_s = time.perf_counter() - t_run
     launches = hc.hamming_kernel.launches
     kernels["hamming_matrix"]["launches"] = launches
+    _segment_count("phase 4, Tracker")
 
     tracked = len(tr.n_inliers_hist)
     passes = len(timer.passes)
@@ -549,11 +782,14 @@ def eval_config():
 
 def phase_eval_map(dev, runs: int = 3):
     """One back-end pass at the eval map's newest keyframe, on the card and
-    through the port on the CPU."""
+    through the port on the CPU; the card's passes must repeat."""
     import torch
+
+    import dataclasses
 
     from sgslam_tpu_torch.io import checkpoint
     from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.ops import segment
     from sgslam_tpu_torch.slam import tracking
 
     cfg = eval_config()
@@ -562,12 +798,18 @@ def phase_eval_map(dev, runs: int = 3):
     m_cpu, _ = checkpoint.load_map(path, device="cpu")
     kf = int(torch.nonzero(m_cpu.kf_valid).max())
 
-    hc.hamming_kernel.launches = 0
+    _zero_counts()
     timer = StageTimer()
+    outs = []
     for _ in range(runs):     # the first run includes first-use set-up
-        out = tracking.process_new_keyframe(cfg, m_dev, kf, on_stage=timer)
+        outs.append(tracking.process_new_keyframe(cfg, m_dev, kf,
+                                                  on_stage=timer))
     torch.cuda.synchronize()
+    out = outs[-1]
     launches = hc.hamming_kernel.launches
+    seg_launches = segment.segment_kernel.launches
+    differ = [f.name for f in dataclasses.fields(out) for o in outs[:-1]
+              if not torch.equal(getattr(o, f.name), getattr(out, f.name))]
     first_ms = timer.passes[0][0][1].elapsed_time(timer.passes[0][-1][1])
     timer.passes = timer.passes[1:]
     pass_ms, stages = timer.split()
@@ -589,8 +831,9 @@ def phase_eval_map(dev, runs: int = 3):
     d = d.numpy()
     print(f"[eval-map] keyframe {kf}: {int(m_cpu.kf_valid.sum())} -> "
           f"{int(got.kf_valid.sum())} keyframes, {int(m_cpu.pt_valid.sum())} "
-          f"-> {int(got.pt_valid.sum())} points, K1 launches {launches} "
-          f"in {runs} passes")
+          f"-> {int(got.pt_valid.sum())} points, K1 launches {launches}, "
+          f"segment-sum launches {seg_launches} in {runs} passes; the "
+          f"passes' maps identical to the bit: {not differ}")
     print(f"[eval-map] back-end pass on the card (CUDA events, median of "
           f"{runs - 1} after a first of {first_ms:.3f} ms): {pass_ms:.3f} "
           f"ms = {_split_text(stages)}; the port on the CPU {cpu_s:.2f} s")
@@ -598,8 +841,13 @@ def phase_eval_map(dev, runs: int = 3):
           f"{dt:.3g} m, quaternion {dq:.3g}; {len(d)} moved points: median "
           f"{np.median(d):.3g} m, p95 {np.percentile(d, 95):.3g} m, max "
           f"{d.max():.3g} m")
-    if launches < 2 * runs:
-        raise AssertionError(f"K1 launched {launches} times in {runs} passes")
+    if launches < 2 * runs or seg_launches < runs:
+        raise AssertionError(f"K1 launched {launches} times, the segment "
+                             f"sum {seg_launches} times in {runs} passes")
+    if differ:
+        raise AssertionError(f"eval map: the card's passes differ in "
+                             f"{sorted(set(differ))}: the back-end pass does "
+                             "not repeat")
     if not (dt < TOL_WIN_POSE_T and dq < TOL_WIN_POSE_Q):
         raise AssertionError(f"eval map: poses differ by {dt} m / {dq}")
     if not (np.median(d) < TOL_WIN_POINT_MEDIAN
@@ -633,12 +881,13 @@ def phase_capacity_pressure(dev, n_frames=LIVE_FRAMES):
     seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames,
                                       device=dev)
     tr = tracking.Tracker(cfg, device=dev)
-    hc.hamming_kernel.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     for i in range(n_frames):
         tr.process(*seq.frame(i))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    _segment_count("phase 6, capacity pressure")
     rmse = _ate(tr, seq.poses.cpu().numpy())
     print(f"[capacity] {n_frames} frames 320x240 in {run_s:.2f} s: state "
           f"{tr.state}, {tr.n_kf} keyframes into "
@@ -711,7 +960,7 @@ def phase_semantic_system(dev, kernels, cfg=None, n_frames=SEM_FRAMES):
     s.on_stage = timer
     s.tracker.on_backend_stage = backend
 
-    hc.hamming_kernel.launches = 0
+    _zero_counts()
     person, kf_frames = 0, []
     t0 = time.perf_counter()
     for i, (gray, depth) in enumerate(frames):
@@ -723,6 +972,7 @@ def phase_semantic_system(dev, kernels, cfg=None, n_frames=SEM_FRAMES):
     run_s = time.perf_counter() - t0
     launches = hc.hamming_kernel.launches
     kernels["hamming_matrix"]["launches"] = launches
+    _segment_count("phase 7, semantic System")
 
     tracked = len(s.tracker.n_inliers_hist)
     rmse = _ate(s.tracker, seq.poses[:n_frames].cpu().numpy())
@@ -787,13 +1037,14 @@ def phase_semantic_objects(dev, n_frames=OBJ_FRAMES):
     seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames,
                                       dynamic=True, props=True, device=dev)
     s = System(cfg, enable_loop=False, device=dev)
-    hc.hamming_kernel.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     for i in range(n_frames):
         gray, depth = seq.frame(i)
         s.track_rgbd(gray, depth, rgb=_rgb(gray))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    _segment_count("phase 8, semantic objects")
     gt = se3.se3_apply(se3.se3_inverse(seq.poses[0])[None],
                        seq.props[:, :3]).cpu().numpy()
     gt_cls = seq.props[:, 5].cpu().numpy().astype(int)
@@ -947,6 +1198,7 @@ def phase_bench_path(dev, kernels, cfg=None, warm=BENCH_WARM,
     pipeline with loop closing, on bench.py's schedule."""
     from sgslam_tpu_torch import config
     from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.ops import segment
 
     cfg = cfg or config.synthetic_config(640, 480)
     n_chunks = warm + timed
@@ -958,7 +1210,7 @@ def phase_bench_path(dev, kernels, cfg=None, warm=BENCH_WARM,
     chunk_timer, loop_timer = StageTimer(), StageTimer()
     ct.on_chunk_stage, ct.on_stage = chunk_timer, loop_timer
     kf0, loops0 = ct._next_kf_host, ct.loops_closed
-    hc.hamming_kernel.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     for c in range(warm, n_chunks):
         ct.process_chunk(g[c], d[c])
@@ -966,6 +1218,7 @@ def phase_bench_path(dev, kernels, cfg=None, warm=BENCH_WARM,
     dt = time.perf_counter() - t0
     launches = hc.hamming_kernel.launches
     kernels["hamming_matrix"]["launches"] = launches
+    seg_launches = segment.segment_kernel.launches
     fps = timed * BENCH_CHUNK / dt
 
     est = ct.poses_cw()
@@ -981,7 +1234,9 @@ def phase_bench_path(dev, kernels, cfg=None, warm=BENCH_WARM,
           f"{ct.n_kf} live keyframes, loops closed {ct.loops_closed - loops0}"
           f", relocalizations {ct.relocs}, min inliers {min_inl}, ATE "
           f"{rmse:.5f} m over {len(est)} frames, K1 launches {launches} "
-          f"({launches / (timed * BENCH_CHUNK):.2f}/frame)")
+          f"({launches / (timed * BENCH_CHUNK):.2f}/frame), segment-sum "
+          f"launches {seg_launches} "
+          f"({seg_launches / (timed * BENCH_CHUNK):.2f}/frame)")
     print(f"[bench-path] frames/s (bench.py's metric: timed frames over the "
           f"wall time of the timed chunks and the final flush): {fps:.3f} "
           f"({dt:.3f} s for {timed * BENCH_CHUNK} frames) on "
@@ -996,9 +1251,10 @@ def phase_bench_path(dev, kernels, cfg=None, warm=BENCH_WARM,
         raise AssertionError(f"bench path: inliers fell to {min_inl}")
     if not rmse < ATE_GATE_M:
         raise AssertionError(f"bench path: ATE {rmse:.4f} m")
-    if launches < 1:
-        raise AssertionError("bench path: K1 never launched")
-    return fps
+    if launches < 1 or seg_launches < 1:
+        raise AssertionError("bench path: K1 or the segment sum never "
+                             "launched")
+    return fps, seg_launches
 
 
 def _ate_cw(est_cw, gt_wc):
@@ -1109,12 +1365,13 @@ def phase_loop_closing(dev, cfg=None, n_frames=STRESS_FRAMES, loops=2.15,
                    device=dev)
         timer = StageTimer()
         s.loop.on_stage = timer
-        hc.hamming_kernel.launches = 0
+        _zero_counts()
         t0 = time.perf_counter()
         for gray, depth in frames:
             s.track_rgbd(gray, depth)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        _segment_count(f"phase 11a, System, {label}")
         rmse = _ate(s.tracker, gt)
         report(f"System (loop closing on), {label}", s.loop, timer, wall,
                rmse, f"state {s.state}, {s.tracker.n_kf} keyframes, K1 "
@@ -1151,10 +1408,12 @@ def phase_loop_closing(dev, cfg=None, n_frames=STRESS_FRAMES, loops=2.15,
         ct = scan_pipeline.ChunkedTracker(cfg, chunk=BENCH_CHUNK,
                                           fetch_every=BENCH_FETCH, loop=loop,
                                           device=dev)
+        _zero_counts()
         t0 = time.perf_counter()
         _run_chunked(ct, frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        _segment_count(f"phase 11a, ChunkedTracker, {label}")
         rmse = _ate_cw(ct.poses_cw(), gt)
         report(f"ChunkedTracker(chunk=4, fetch_every=6, loop), {label}",
                loop, timer, wall, rmse, f"{ct.n_kf} keyframes, "
@@ -1253,6 +1512,7 @@ def phase_forced_loop(dev, cfg=None):
     s = System(cfg, enable_semantic=False, enable_mapping=False, device=dev)
     timer = StageTimer()
     s.loop.on_stage = timer
+    _zero_counts()
     t0 = time.perf_counter()
     for g, d in frames[:70]:
         s.track_rgbd(g, d)
@@ -1264,6 +1524,7 @@ def phase_forced_loop(dev, cfg=None):
     for g, d in frames[70:]:
         s.track_rgbd(g, d)
     torch.cuda.synchronize()
+    _segment_count("phase 11b, System")
     final = _kf_ate(s.tracker.map, gt)
     report("System", s.loop, timer, drifted, final,
            time.perf_counter() - t0)
@@ -1278,39 +1539,56 @@ def phase_forced_loop(dev, cfg=None):
         raise AssertionError("forced loop (System): the corrected map is "
                              "not finite")
 
-    # ChunkedTracker: 92 frames, 1.15 laps, drift after frame 66
+    # ChunkedTracker: 92 frames, 1.15 laps, drift after frame 66; run
+    # twice from fresh objects, which must agree to the bit
     frames, gt = circuit(92, 1.15)
-    loop = LoopCloser(cfg, device=dev)
-    timer = StageTimer()
-    loop.on_stage = timer
-    ct = scan_pipeline.ChunkedTracker(cfg, chunk=BENCH_CHUNK, fetch_every=2,
-                                      loop=loop, device=dev)
-    t0 = time.perf_counter()
-    i = 0
-    while ct._carry is None:
-        ct.bootstrap(*frames[i])
-        i += 1
-    for stop in (66, 92):
-        while i + BENCH_CHUNK <= stop:
-            fr = frames[i:i + BENCH_CHUNK]
-            ct.process_chunk(torch.stack([f[0] for f in fr]),
-                             torch.stack([f[1] for f in fr]))
-            i += BENCH_CHUNK
-        if stop == 66:
-            ct.flush()
-            clean = ct.loops_closed
-            ct._map, dl = _inject_drift(ct._map, FORCED_DRIFT_CHUNKED)
-            ct._carry.Tcw = se3.se3_compose(ct._carry.Tcw, dl)
-            ct._ref_pose_ins = ct._map.kf_pose[ct._ref_slot].cpu().numpy()
-            drifted = _kf_ate(ct._map, gt)
-    ct.flush()
-    torch.cuda.synchronize()
-    final = _kf_ate(ct.map, gt)
-    report("ChunkedTracker(chunk=4, fetch_every=2, loop)", loop, timer,
-           drifted, final, time.perf_counter() - t0)
-    if clean or ct.loops_closed < 1:
-        raise AssertionError("forced loop (chunked): no loop after the "
-                             "drift or a loop before it")
+
+    def chunked():
+        loop = LoopCloser(cfg, device=dev)
+        timer = StageTimer()
+        loop.on_stage = timer
+        ct = scan_pipeline.ChunkedTracker(cfg, chunk=BENCH_CHUNK,
+                                          fetch_every=2, loop=loop,
+                                          device=dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        i = 0
+        while ct._carry is None:
+            ct.bootstrap(*frames[i])
+            i += 1
+        for stop in (66, 92):
+            while i + BENCH_CHUNK <= stop:
+                fr = frames[i:i + BENCH_CHUNK]
+                ct.process_chunk(torch.stack([f[0] for f in fr]),
+                                 torch.stack([f[1] for f in fr]))
+                i += BENCH_CHUNK
+            if stop == 66:
+                ct.flush()
+                clean = ct.loops_closed
+                ct._map, dl = _inject_drift(ct._map, FORCED_DRIFT_CHUNKED)
+                ct._carry.Tcw = se3.se3_compose(ct._carry.Tcw, dl)
+                ct._ref_pose_ins = ct._map.kf_pose[ct._ref_slot].cpu().numpy()
+                drifted = _kf_ate(ct._map, gt)
+        ct.flush()
+        torch.cuda.synchronize()
+        _segment_count("phase 11b, ChunkedTracker")
+        final = _kf_ate(ct.map, gt)
+        report("ChunkedTracker(chunk=4, fetch_every=2, loop)", loop, timer,
+               drifted, final, time.perf_counter() - t0)
+        if clean or ct.loops_closed < 1:
+            raise AssertionError("forced loop (chunked): no loop after the "
+                                 "drift or a loop before it")
+        m = ct.map
+        return {name: getattr(m, name).cpu() for name in
+                ("kf_pose", "kf_valid", "pt_pos", "pt_valid")}
+
+    first, second = chunked(), chunked()
+    same = {k: torch.equal(first[k], second[k]) for k in first}
+    print(f"[forced-loop] ChunkedTracker run twice: keyframe poses, map "
+          f"points and their masks identical to the bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"forced loop (chunked): the two runs differ "
+                             f"({same})")
 
 
 def kidnap_config():
@@ -1387,10 +1665,11 @@ def phase_relocalization(dev, moved_seeds=RELOC_MOVED_SEEDS):
     inputs = [("rendered", rendered)] + [
         (f"moved by one ulp (seed {s})", moved_frames(rendered, s))
         for s in moved_seeds]
-    hc.hamming_kernel.launches = 0
     best = []
     for label, frames in inputs:
+        _zero_counts()
         relocs, tail, errs = kidnap_run(dev, cfg, frames)
+        _segment_count(f"phase 12, {label}")
         best.append(min(errs))
         print(f"[reloc] {label}: {KIDNAP_MAP} frames mapped, then 3 chunks "
               f"from frame {KIDNAP_TO}: relocalizations {relocs}, tail "
@@ -1452,7 +1731,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     s = System(cfg, enable_semantic=False, enable_mapping=False, device=dev)
     timer = StageTimer()
     s.on_stage = timer
-    hc.hamming_kernel.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     kf_frames = []
     for i, (gl, gr) in enumerate(pairs):
@@ -1462,6 +1741,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = hc.hamming_kernel.launches
+    _segment_count("phase 13a, System.track_stereo")
     rmse = _ate(s.tracker, gt)
     groups = timer.groups()
     med = {n: float(np.median([g[n] for i, g in enumerate(groups)
@@ -1502,12 +1782,13 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
         loop=LoopCloser(cfg, device=dev), device=dev)
     chunk_timer = StageTimer()
     ct.on_chunk_stage = chunk_timer
-    hc.hamming_kernel.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     _run_chunked(ct, pairs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = hc.hamming_kernel.launches
+    _segment_count("phase 13b, ChunkedStereoTracker")
     rmse = _ate_cw(ct.poses_cw(), gt)
     stages = _chunk_stage_split(chunk_timer)
     print(f"[stereo] ChunkedStereoTracker(chunk={BENCH_CHUNK}, fetch_every="
@@ -1532,9 +1813,10 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     st = scan_pipeline.ChunkedSemanticStereoTracker(
         scfg, Detector2D(scfg.detector, device=dev), chunk=BENCH_CHUNK,
         fetch_every=2, device=dev)
-    hc.hamming_kernel.launches = 0
+    _zero_counts()
     _run_chunked(st, spairs)
     launches = hc.hamming_kernel.launches
+    _segment_count("phase 13c, ChunkedSemanticStereoTracker")
     est = st.poses_cw()
     rmse = _ate_cw(est, sseq.poses[:len(est)].cpu().numpy())
     med_inl = sorted(st.n_inliers_hist)[len(st.n_inliers_hist) // 2]
@@ -1611,7 +1893,7 @@ def phase_mono(dev, cfg=None, n_frames=MONO_FRAMES):
     mono.initialize_mono = recorded
     timer = StageTimer()
     s.on_stage = timer
-    hc.hamming_kernel.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     init = None
     try:
@@ -1624,6 +1906,7 @@ def phase_mono(dev, cfg=None, n_frames=MONO_FRAMES):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = hc.hamming_kernel.launches
+    _segment_count("phase 14, System.monocular")
     tr = s.tracker
     n_pts = int(tr.map.pt_valid.sum())
     if init is None:
@@ -1725,7 +2008,7 @@ def phase_cli(dev, n_frames=CLI_FRAMES):
             argv = ["--synthetic", str(n_frames), "--seq-dir", seq_dir,
                     "--out", os.path.join(tmp, "out_chunked" if extra
                                           else "out")]
-            hc.hamming_kernel.launches = 0
+            _zero_counts()
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
@@ -1734,6 +2017,8 @@ def phase_cli(dev, n_frames=CLI_FRAMES):
             lines = buf.getvalue().strip().splitlines()
             printed = json.loads(lines[-1])
             launches = hc.hamming_kernel.launches
+            _segment_count(f"phase 15, run_tum "
+                           f"{' '.join(extra) or 'per frame'}")
             print(f"[cli] run_tum {' '.join(argv[:2] + extra)} in "
                   f"{wall:.2f} s, K1 launches {launches}: {lines[-1]}")
             if printed != result or list(printed) != keys:
@@ -1749,6 +2034,199 @@ def phase_cli(dev, n_frames=CLI_FRAMES):
             traj = np.loadtxt(printed["trajectory"])
             if traj.shape != (n_frames, 8) or not np.isfinite(traj).all():
                 raise AssertionError(f"run_tum trajectory {traj.shape}")
+
+
+def phase_scale_out(dev, use_asset: bool = True):
+    """The port's dryrun of the multi-chip contract at world size 1 on
+    NCCL, then one distributed step on the card against the same step on a
+    gloo grid on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from sgslam_tpu_torch.ops import segment
+    from sgslam_tpu_torch.parallel import dist_ba, dryrun, map_partition
+    from sgslam_tpu_torch.parallel import multihost
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    rdv = os.path.join(root, "build", f"rendezvous_{os.getpid()}")
+    os.makedirs(os.path.dirname(rdv), exist_ok=True)
+    if os.path.exists(rdv):
+        os.unlink(rdv)
+    multihost.init_process(f"file://{rdv}", 1, 0, device=dev)
+    try:
+        mesh = dist_ba.make_mesh(1, 1, device=dev)
+        _zero_counts()
+        cfg, m, label = dryrun.load_problem(dev, use_asset)
+        rep = dryrun.dryrun(mesh, cfg, m, label, iters=SCALE_OUT_ITERS)
+        seg_launches = _segment_count("phase 16, dryrun",
+                                      5 * SCALE_OUT_ITERS)
+        print(f"[scale-out] world size 1 on {dist.get_backend()}, {label}: "
+              f"C={rep['C']} keyframes, P={rep['P']} points, {rep['obs']} "
+              f"observations; reprojection cost {rep['cost0']:.2f} -> "
+              f"{rep['cost1']:.2f} in {rep['iters']} LM iterations; "
+              f"{rep['ms_per_iter']:.3f} ms per iteration (CUDA events, "
+              f"median; each {[round(x, 3) for x in rep['step_ms']]}), peak "
+              f"memory above the map {rep['peak_gib']} GiB, bytes handed "
+              f"to collectives per iteration {rep['collective_bytes_per_iter']}"
+              f", segment-sum launches {seg_launches}")
+        if not rep["ok"]:
+            raise AssertionError(f"scale-out: cost {rep['cost0']} -> "
+                                 f"{rep['cost1']}")
+
+        # one step, card vs CPU, at the damping where the first step is
+        # accepted
+        cpu_mesh = dist_ba.make_mesh(1, 1, device="cpu", backend="gloo")
+        part = map_partition.partition_map(cfg, m, 1)
+        outs = []
+        for msh in (mesh, cpu_mesh):
+            sh = dist_ba.make_shardings(msh)
+            noisy = part.points + dryrun.point_noise(
+                (m.max_pt, 3))[np.maximum(part.pt_ids, 0)]
+            step = dist_ba.make_distributed_ba_step(cfg.camera, msh,
+                                                    part.poses.shape[0])
+            out = step(sh["replicated"](part.poses),
+                       sh["replicated"](part.opt_mask), sh["pt"](noisy),
+                       sh["pt"](part.obs_cam), sh["pt"](part.obs_pt),
+                       sh["pt"](part.obs_uvr), sh["pt"](part.obs_w),
+                       torch.tensor(SCALE_OUT_STEP_LAM, device=msh.device))
+            outs.append([x.cpu() for x in out])
+        (p_gpu, x_gpu, l_gpu), (p_cpu, x_cpu, l_cpu) = outs
+        dp = float((p_gpu - p_cpu).abs().max())
+        dx = torch.linalg.vector_norm(x_gpu - x_cpu, dim=1)
+        moved = float((p_gpu - torch.as_tensor(part.poses)).abs().max())
+        print(f"[scale-out] one distributed step (lam {SCALE_OUT_STEP_LAM})"
+              f" card vs CPU: accepted on the card "
+              f"{float(l_gpu) < SCALE_OUT_STEP_LAM}, on the CPU "
+              f"{float(l_cpu) < SCALE_OUT_STEP_LAM}; poses moved {moved:.3g} "
+              f"and differ by {dp:.3g}; points differ by median "
+              f"{float(dx.median()):.3g} m, max {float(dx.max()):.3g} m")
+        if not (float(l_gpu) == float(l_cpu) and dp < TOL_STEP_POSE
+                and float(dx.median()) < TOL_STEP_POINT_MEDIAN):
+            raise AssertionError("scale-out: the card's step differs from "
+                                 "the CPU's")
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(rdv):
+            os.unlink(rdv)
+    return rep
+
+
+def phase_detector_training(dev, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
+    """`TRAIN_STEPS` AdamW steps at batch `TRAIN_BATCH` through the port's
+    trainer on the card, then one step card vs CPU on the same batch."""
+    import torch
+
+    from sgslam_tpu_torch import train_detector
+
+    tr = train_detector.Trainer(steps, batch, device=dev)
+    losses, sample_ms, step_ms = [], [], []
+    for i in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        b = tr.batch_for(i)
+        ev[1].record()
+        loss, _ = tr.step(*b)
+        ev[2].record()
+        losses.append(loss)
+        ev[2].synchronize()
+        sample_ms.append(ev[0].elapsed_time(ev[1]))
+        step_ms.append(ev[1].elapsed_time(ev[2]))
+    losses = [float(x) for x in losses]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"[train] {steps} steps at batch {batch}, 300x300, the 8 room x "
+          f"camera variants in turn: loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+          f" (mean of the first 5 {first:.4f}, of the last 5 {last:.4f}); per"
+          f" step (CUDA events, median after the first): sampling "
+          f"{np.median(sample_ms[1:]):.3f} ms, forward + backward + AdamW "
+          f"{np.median(step_ms[1:]):.3f} ms (first step {step_ms[0]:.3f} ms)")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"detector training: the loss did not fall "
+                             f"({losses})")
+
+    # one step card vs CPU: the same initialization and batch
+    rgb, boxes, labels, vis = tr.batch_for(0)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        t = train_detector.Trainer(steps, batch, device=d)
+        loss, _ = t.step(rgb.to(d), boxes.to(d), labels.to(d), vis.to(d))
+        runs.append((t, float(loss)))
+    (t_gpu, l_gpu), (t_cpu, l_cpu) = runs
+    gaps = [_grad_gap(t_gpu.model, t_cpu.model)]
+    # AdamW given the same gradients: the card's, on a fresh CPU trainer
+    t_ref = train_detector.Trainer(steps, batch, device="cpu")
+    for pr, pg in zip(t_ref.model.parameters(), t_gpu.model.parameters()):
+        pr.grad = pg.grad.cpu()
+    t_ref.opt.step()
+    u_gap = max(float((pr - pg.cpu()).detach().abs().max()) for pr, pg in
+                zip(t_ref.model.parameters(), t_gpu.model.parameters()))
+    # the gradient gap on other seeds and batches, and with a planted
+    # fault on the card's side: the localization term dropped
+    for seed, i in TRAIN_GRAD_READINGS:
+        b = train_detector.Trainer(steps, batch, seed=seed,
+                                   device=dev).batch_for(i)
+        gaps.append(_grad_gap(_grads(dev, steps, batch, seed, b),
+                              _grads("cpu", steps, batch, seed, b)))
+    faulty = _grads(dev, steps, batch, 0, (rgb, boxes, labels, vis), True)
+    fault = _grad_gap(faulty, t_cpu.model)
+    fault_shared = _grad_gap(faulty, t_cpu.model, shared_only=True)
+    print(f"[train] one step card vs CPU (TF32 off): loss {l_gpu:.6f} vs "
+          f"{l_cpu:.6f}; gradients within {gaps[0]:.3g} of each tensor's "
+          f"largest entry (seeds and batches {[(0, 0)] + TRAIN_GRAD_READINGS}"
+          f": {[float(f'{g:.3g}') for g in gaps]}; with the card's "
+          f"localization term dropped: {fault:.3g}, over the layers that "
+          f"still have gradients {fault_shared:.3g}; limit "
+          f"{TOL_TRAIN_GRAD}); "
+          f"AdamW on the card's gradients within {u_gap:.3g}")
+    if not (abs(l_gpu - l_cpu) <= TOL_TRAIN_LOSS * abs(l_cpu)
+            and max(gaps) < TOL_TRAIN_GRAD and u_gap < TOL_TRAIN_UPDATE):
+        raise AssertionError("detector training: the card's step differs "
+                             "from the CPU's")
+    if not fault_shared > TOL_TRAIN_GRAD:
+        raise AssertionError("detector training: the gradient limit does "
+                             "not tell a missing loss term")
+    return float(np.median(step_ms[1:]))
+
+
+def _grads(dev, steps, batch, seed, b, drop_loc=False):
+    """A fresh trainer's model (seed `seed`) with the gradients of
+    `batched_loss` on batch `b`; `drop_loc` leaves the localization term
+    out of the loss (a planted fault)."""
+    from sgslam_tpu_torch import train_detector
+    from sgslam_tpu_torch.models import detector_train as dt
+
+    t = train_detector.Trainer(steps, batch, seed=seed, device=dev)
+    full = dt.multibox_loss
+
+    def cls_only(*args, **kwargs):
+        _, parts = full(*args, **kwargs)
+        return parts[0], parts
+
+    dt.multibox_loss = cls_only if drop_loc else full
+    try:
+        loss, _ = dt.batched_loss(t.model, t.anchors, None,
+                                  *[x.to(t.device) for x in b])
+    finally:
+        dt.multibox_loss = full
+    loss.backward()
+    return t.model
+
+
+def _grad_gap(card, cpu, shared_only: bool = False) -> float:
+    """The largest gradient difference of any parameter tensor, over that
+    tensor's largest CPU gradient entry (a missing gradient counts as
+    zeros); `shared_only` skips the tensors that have no gradient on the
+    card's side."""
+    import torch
+
+    gap = 0.0
+    for (_, pg), (_, pc) in zip(card.named_parameters(),
+                                cpu.named_parameters()):
+        if pg.grad is None and shared_only:
+            continue
+        g = torch.zeros_like(pc.grad) if pg.grad is None else pg.grad.cpu()
+        scale = float(pc.grad.abs().max()) + 1e-12
+        gap = max(gap, float((g - pc.grad).abs().max()) / scale)
+    return gap
 
 
 def main() -> int:
@@ -1776,23 +2254,36 @@ def main() -> int:
                         capacity_config(), semantic_config(),
                         objects_config(), kidnap_config(), mono_config()])
     popc = phase_build()
+    from sgslam_tpu_torch.ops import segment
+
+    rec = SegmentInputs(segment.segment_kernel)
+    segment.segment_kernel = rec     # every phase's sums recorded
     max_err = phase_k1_parity(dev, rng, shapes)
     rate = phase_popc_rate(dev, popc)
     kernels = {"hamming_matrix": phase_k1_time(dev, rng, rate, max_err,
                                                shapes)}
-    phase_main_path(dev, kernels)
-    phase_eval_map(dev)
-    phase_capacity_pressure(dev)
-    det_frames, frames = phase_semantic_system(dev, kernels)
-    phase_semantic_objects(dev)
-    phase_card_vs_cpu(dev, det_frames, frames[40:42])
-    phase_bench_path(dev, kernels)
-    phase_loop_closing(dev)
-    phase_forced_loop(dev)
-    phase_relocalization(dev)
-    phase_stereo(dev)
-    phase_mono(dev)
-    phase_cli(dev)
+
+    def run(phase, fn, *args):
+        rec.phase = phase
+        return fn(dev, *args)
+
+    run("4", phase_main_path, kernels)
+    run("5", phase_eval_map)
+    run("6", phase_capacity_pressure)
+    det_frames, frames = run("7", phase_semantic_system, kernels)
+    run("8", phase_semantic_objects)
+    run("9", phase_card_vs_cpu, det_frames, frames[40:42])
+    _, seg_launches = run("10", phase_bench_path, kernels)
+    run("11a", phase_loop_closing)
+    run("11b", phase_forced_loop)
+    run("12", phase_relocalization)
+    run("13", phase_stereo)
+    run("14", phase_mono)
+    run("15", phase_cli)
+    run("16", phase_scale_out)
+    run("17", phase_detector_training)
+    rec.phase = "-"
+    kernels["segment_sum"] = phase_segment(dev, rec, seg_launches)
     if any(k["launches"] < 1 for k in kernels.values()):
         raise AssertionError("a kernel of the path was never launched")
     if "jax" in sys.modules or "sgslam_tpu" in sys.modules:

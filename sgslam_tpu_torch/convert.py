@@ -118,6 +118,29 @@ def detector_params_from_numpy(flat: dict) -> dict:
     return out
 
 
+def detector_params_to_numpy(state: dict) -> dict:
+    """The inverse of `detector_params_from_numpy`: an `SSDLite` state dict
+    -> the flax-flattened `detector.npz` keys ('params/DWBlock_0/Conv_1/
+    kernel', ...) as float32 numpy arrays; kernels from OIHW back to HWIO."""
+    modules = {v: k for k, v in _SSD_MODULES.items()}
+    out = {}
+    for key, val in state.items():
+        module, name = key.rsplit(".", 1)
+        if module.startswith("blocks."):
+            _, blk, layer = module.split(".")
+            kind = "Conv" if layer.startswith("conv") else "GroupNorm"
+            path = f"DWBlock_{blk}/{kind}_{layer[-1]}"
+        else:
+            path = modules[module]
+        x = val.detach().cpu().numpy().astype(np.float32)
+        if name == "weight" and x.ndim == 4:
+            leaf, x = "kernel", x.transpose(2, 3, 1, 0)
+        else:
+            leaf = {"weight": "scale", "bias": "bias"}[name]
+        out[f"params/{path}/{leaf}"] = np.ascontiguousarray(x)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Loop closing and the chunked pipeline
 # ---------------------------------------------------------------------------

@@ -63,6 +63,16 @@ def backproject(cam: Camera, uv, z):
     return torch.stack([x, y, z], dim=-1)
 
 
+def distort_normalized(cam: Camera, xy):
+    """Apply radtan distortion to normalized coords [..., 2]."""
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    xd = x * radial + 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
 def undistort_points(cam: Camera, uv, iters: int = 8):
     """Undistort pixel coords [..., 2] by `iters` fixed-point iterations
     (the reference's static iteration count, Frame.cc:654-684)."""

@@ -2,8 +2,9 @@
 
 Port of `sgslam_tpu/mapping/occupancy.py`: a dense [D,D,D] log-odds grid
 (the octree of octomap_server), updated by a fixed-step walk along every
-ray of a scan. The two scatter-adds are float sums; CUDA does not fix
-their order, so grids match the reference's within f32 rounding.
+ray of a scan. The two scatter-adds are segment sums in a fixed order
+(`ops.segment.segment_sum`), the same on every launch; grids match the
+reference's within f32 rounding.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from ..ops.segment import segment_sum
 
 # log(0.7/0.3), log(0.4/0.6), clamps log(0.12/0.88), log(0.97/0.03)
 HIT_LOGODDS = 0.8473
@@ -42,7 +45,7 @@ def world_to_voxel(grid: OccupancyGrid, pts):
 
 def _flat_index(ijk, inb, D: int):
     flat = (ijk[..., 0] * D + ijk[..., 1]) * D + ijk[..., 2]
-    return torch.where(inb, flat, D * D * D).to(torch.int64)
+    return torch.where(inb, flat, -1)
 
 
 def insert_scan(grid: OccupancyGrid, sensor_origin, points, valid,
@@ -68,18 +71,18 @@ def insert_scan(grid: OccupancyGrid, sensor_origin, points, valid,
     inb = torch.all((ijk >= 0) & (ijk < D), -1) & free_mask
     flat = _flat_index(ijk, inb, D)
 
-    lo = torch.cat([grid.logodds.reshape(-1), torch.zeros(1, device=dev)])
-    lo = lo.index_add_(0, flat.reshape(-1), torch.full(
-        (flat.numel(),), MISS_LOGODDS, device=dev))
+    lo = segment_sum(torch.full((flat.numel(),), MISS_LOGODDS, device=dev),
+                     flat.reshape(-1), D ** 3, grid.logodds.reshape(-1))
 
     # endpoint hits (also cancel the miss the endpoint may have received)
     e_ijk = world_to_voxel(grid, points)
     e_inb = torch.all((e_ijk >= 0) & (e_ijk < D), -1) & valid
     e_flat = _flat_index(e_ijk, e_inb, D)
-    lo = lo.index_add_(0, e_flat, torch.full(
-        (e_flat.numel(),), HIT_LOGODDS - MISS_LOGODDS, device=dev))
+    lo = segment_sum(torch.full((e_flat.numel(),),
+                                HIT_LOGODDS - MISS_LOGODDS, device=dev),
+                     e_flat, D ** 3, lo)
 
-    new = torch.clamp(lo[:-1].reshape(D, D, D), CLAMP_MIN, CLAMP_MAX)
+    new = torch.clamp(lo.reshape(D, D, D), CLAMP_MIN, CLAMP_MAX)
     return dataclasses.replace(grid, logodds=new)
 
 

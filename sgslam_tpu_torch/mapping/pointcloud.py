@@ -11,9 +11,10 @@ so the ids are the reference's to the bit. The cell of a point is
 `floor(p * (1 / size))` with the reciprocal rounded to f32: the reference
 divides, but XLA compiles a division by its constant (static) cell size
 into that product, which lands on the other side of a cell boundary for
-about one point in 10**5. The scatter-adds are float
-sums whose order CUDA leaves open: the centroids match within f32
-rounding, not bit for bit.
+about one point in 10**5. The scatter-adds are segment sums in a fixed
+order (`ops.segment.segment_sum`), the same on every launch; the reference's
+scatters sum in XLA's order, so the centroids match within f32 rounding,
+not bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from ..geometry import se3
 from ..geometry.camera import Camera
+from ..ops.segment import segment_sum
 from ..semantic.dynamic import Boxes, in_any_box
 
 # deterministic spatial hash primes (Teschner et al.)
@@ -78,15 +80,10 @@ def voxel_downsample(points, intensity, valid, *, voxel_size: float = 0.01,
     (pcl::VoxelGrid contract). Returns fixed-capacity (points [T,3],
     intensity [T], valid [T])."""
     ids, _ = voxel_ids(points, voxel_size, table_size)
-    ids = torch.where(valid, ids, table_size).to(torch.int64)
-    w = valid.to(torch.float32)
-    dev = points.device
-    cnt = torch.zeros(table_size + 1, device=dev).index_add_(0, ids, w)
-    psum = torch.zeros((table_size + 1, 3), device=dev).index_add_(
-        0, ids, points * w[:, None])
-    isum = torch.zeros(table_size + 1, device=dev).index_add_(
-        0, ids, intensity * w)
-    cnt, psum, isum = cnt[:table_size], psum[:table_size], isum[:table_size]
+    ids = torch.where(valid, ids, -1)
+    sums = segment_sum(torch.cat([valid[:, None].to(torch.float32), points,
+                                  intensity[:, None]], 1), ids, table_size)
+    cnt, psum, isum = sums[:, 0], sums[:, 1:4], sums[:, 4]
     c = torch.clamp(cnt, min=1.0)
     return psum / c[:, None], isum / c, cnt > 0
 
@@ -98,9 +95,8 @@ def density_outlier_filter(points, valid, *, voxel_size: float = 0.05,
     holds at least `min_neighbors` points (replaces
     pcl::StatisticalOutlierRemoval)."""
     ids, ijk = voxel_ids(points, voxel_size, table_size)
-    ids = torch.where(valid, ids, table_size).to(torch.int64)
-    cnt = torch.zeros(table_size + 1, device=points.device).index_add_(
-        0, ids, valid.to(torch.float32))[:table_size]
+    cnt = segment_sum(valid.to(torch.float32), torch.where(valid, ids, -1),
+                      table_size)
     neigh = torch.zeros_like(points[..., 0])
     for dx in (-1, 0, 1):
         for dy in (-1, 0, 1):

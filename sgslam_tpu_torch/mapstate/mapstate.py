@@ -122,7 +122,9 @@ def _set_rows(x, idx, values):
 # ---------------------------------------------------------------------------
 
 def incidence_matrix(m: MapState, dtype=torch.float32):
-    """[K, P] 1.0 where keyframe k observes point p."""
+    """[K, P] 1.0 where keyframe k observes point p. Every write is a 1.0
+    (the reference adds ones and clamps at 1), so repeated entries give the
+    same result in any order."""
     K, P = m.max_kf, m.max_pt
     obs = m.kf_obs_point.to(torch.int64)
     ok = (obs >= 0) & m.kf_valid[:, None]
@@ -130,9 +132,9 @@ def incidence_matrix(m: MapState, dtype=torch.float32):
     flat_k = torch.where(ok, k_idx, 0).reshape(-1)
     flat_p = torch.where(ok, obs, P).reshape(-1)  # invalid -> spare column
     inc = torch.zeros((K, P + 1), dtype=dtype, device=m.device)
-    inc.index_put_((flat_k, flat_p), ok.reshape(-1).to(dtype),
-                   accumulate=True)
-    return torch.clamp(inc[:, :P], max=1.0)
+    inc.index_put_((flat_k, flat_p), torch.ones((), dtype=dtype,
+                                                device=m.device))
+    return inc[:, :P]
 
 
 def covisibility_rows(m: MapState, kf_ids, min_weight: int = 15):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.hamming_cuda import _popcount32
+from ..ops.segment import segment_sum
 
 VOCAB_ASSET = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -183,12 +184,9 @@ def quantize(vocab: Vocabulary, desc, valid):
 
 def bow_vector(vocab: Vocabulary, word_ids):
     """Word ids [N] -> L1-normalized tf-idf histogram [n_words]. The counts
-    are integers, so the scatter's order does not matter."""
-    W = vocab.n_words
-    slot = torch.where(word_ids >= 0, word_ids, W).to(torch.int64)
-    hist = torch.zeros(W + 1, dtype=torch.float32, device=word_ids.device)
-    hist.index_add_(0, slot, torch.ones_like(slot, dtype=torch.float32))
-    hist = hist[:W] * vocab.word_idf
+    are integers (exact in any order); invalid ids (-1) are dropped."""
+    hist = segment_sum(torch.ones(word_ids.shape, device=word_ids.device),
+                       word_ids, vocab.n_words) * vocab.word_idf
     return hist / torch.clamp(torch.sum(hist), min=1e-9)
 
 

@@ -125,6 +125,13 @@ def gather_patches(img, centers, radius: int):
         -1, size, size)
 
 
+def max_pool_3x3(x):
+    """3x3 max filter (same shape) of an [H, W] image, padded with -inf
+    (the reference's `reduce_window` with SAME padding)."""
+    return torch.nn.functional.max_pool2d(x[None, None], 3, stride=1,
+                                          padding=1)[0, 0]
+
+
 def bilinear_sample(img, xy):
     """Sample img [H,W] at float coords xy [...,2] with bilinear interp.
 

@@ -223,3 +223,8 @@ def attach_rgbd(feats: Features, depth_map, cam: Camera) -> Features:
                           -1.0)
     depth = torch.where(ok, d, -1.0)
     return dataclasses.replace(feats, depth=depth, u_right=u_right)
+
+
+def scale_factors(cfg: OrbConfig):
+    """The pyramid's scale factor of every level, scale_factor ** level."""
+    return tuple(cfg.scale_factor ** lv for lv in range(cfg.n_levels))

@@ -7,7 +7,8 @@ complement and one [6C, 6C] solve per iteration.
 
 What differs from the reference, and why:
   * the point-block sums (H_pp, b_p and the camera-point coupling A) are
-    an `index_add_` over `c * P + obs_pt` into a [C * P, 30] buffer. The
+    a segment sum (`ops.segment.segment_sum`, in a fixed order) over
+    `c * P + obs_pt` into a [C * P, 30] buffer. The
     reference contracts a bf16 one-hot [C, N, P] with the [C, N, 30]
     per-observation blocks on the TPU's matrix unit; at window 16+8, 2176
     features and 4096 points that one-hot alone is 428 MB, where the
@@ -30,6 +31,7 @@ import torch
 
 from ..geometry import linalg, se3
 from ..geometry.camera import Camera
+from ..ops.segment import segment_sum
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -120,17 +122,16 @@ def _point_block_sums(prob: BAProblem, rhs_all, n_points: int):
     accumulates in f32. The rounding is kept: swapping it for f32 on the
     eval map's 16+8 window moves poses by up to 2.7 mm and one badly
     constrained point by 3.7 m, a different result rather than the same
-    one made faster. Rows with obs_w == 0 are zeroed, as the reference's
-    one-hot is.
+    one made faster. Rows with obs_w == 0 are dropped, as the reference's
+    one-hot zeroes them. The sum runs in a fixed order, so it repeats on
+    the card.
     """
     C, N, K = rhs_all.shape
     rhs = rhs_all.to(torch.bfloat16).to(torch.float32)
-    rhs = torch.where((prob.obs_w > 0)[..., None], rhs, 0.0)
     cam = torch.arange(C, device=rhs.device, dtype=torch.int64)[:, None]
-    slot = (cam * n_points + prob.obs_pt.to(torch.int64)).reshape(-1)
-    out = torch.zeros((C * n_points, K), dtype=torch.float32,
-                      device=rhs.device)
-    out.index_add_(0, slot, rhs.reshape(C * N, K))
+    slot = torch.where(prob.obs_w > 0,
+                       cam * n_points + prob.obs_pt.to(torch.int64), -1)
+    out = segment_sum(rhs.reshape(C * N, K), slot.reshape(-1), C * n_points)
     return out.reshape(C, n_points, K)
 
 

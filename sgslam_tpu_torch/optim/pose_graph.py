@@ -10,8 +10,9 @@ rounding: torch's forward-mode AD (`torch.func.jvp`, `forward_ad`) was
 differentiated cleanly alone.
 
 The normal equations are one dense [7K, 7K] system, as in the reference: the
-block scatter `H.at[edge_i, :, edge_j, :].add(...)` becomes one
-`index_put_(accumulate=True)` at row 7*i + r, column 7*j + c. Fixed and
+block scatter `H.at[edge_i, :, edge_j, :].add(...)` becomes one segment sum
+(`ops.segment.segment_sum`, in a fixed order, so that it repeats on the
+card) at the flat index (7*i + r) * 7K + 7*j + c. Fixed and
 unused keyframes get a 1e8 penalty on their diagonal, and the system is
 solved by LU (`geometry.linalg.solve`) at the full keyframe capacity (3584 rows
 for 512 slots). LU on the card and LAPACK's on the CPU round differently, so
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..geometry import linalg, se3
+from ..ops.segment import segment_sum
 
 
 def edge_residual(S_i, S_j, S_meas_ij):
@@ -83,10 +85,13 @@ def optimize_pose_graph(poses, pose_valid, fixed_mask, edge_i, edge_j,
     diag = fixpen.repeat_interleave(7) + damping
     rows, cols = zip(_block_index(ei, ei), _block_index(ej, ej),
                      _block_index(ei, ej), _block_index(ej, ei))
-    rows, cols = torch.cat(rows).reshape(-1), torch.cat(cols).reshape(-1)
+    # padding edges (weight 0) add nothing: their entries are dropped
+    used = (w > 0).repeat(4)[:, None, None]
+    flat = torch.where(used, torch.cat(rows) * n + torch.cat(cols),
+                       -1).reshape(-1)
     b_rows = torch.cat([7 * ei[:, None] + torch.arange(7, device=dev),
-                        7 * ej[:, None] + torch.arange(7, device=dev)]
-                       ).reshape(-1)
+                        7 * ej[:, None] + torch.arange(7, device=dev)])
+    b_rows = torch.where((w > 0).repeat(2)[:, None], b_rows, -1).reshape(-1)
     scale_w = torch.ones(7, dtype=poses.dtype, device=dev)
     scale_w[6] = 100.0
 
@@ -104,13 +109,11 @@ def optimize_pose_graph(poses, pose_valid, fixed_mask, edge_i, edge_j,
             torch.einsum("eri,erj,e->eij", Jj, Jj, w),
             torch.einsum("eri,erj,e->eij", Ji, Jj, w),
             torch.einsum("eri,erj,e->eij", Jj, Ji, w)])
-        H = torch.zeros((n, n), dtype=poses.dtype, device=dev)
-        H.index_put_((rows, cols), blocks.reshape(-1), accumulate=True)
+        H = segment_sum(blocks.reshape(-1), flat, n * n).reshape(n, n)
         H = H + torch.diag(diag)
-        b = torch.zeros(n, dtype=poses.dtype, device=dev)
-        b.index_add_(0, b_rows, torch.cat([
+        b = segment_sum(torch.cat([
             torch.einsum("eri,er,e->ei", Ji, r, w),
-            torch.einsum("eri,er,e->ei", Jj, r, w)]).reshape(-1))
+            torch.einsum("eri,er,e->ei", Jj, r, w)]).reshape(-1), b_rows, n)
         dx = linalg.solve(H, -b).reshape(K, 7)
         dx = torch.where(free[:, None], dx, 0.0)
         poses = se3.sim3_compose(se3.sim3_exp(dx), poses)

@@ -1,18 +1,20 @@
-"""Per-stage timing + metrics registry.
+"""Per-stage timing + metrics registry, and a profiler trace context.
 
-Own copy of `sgslam_tpu/utils/timing.py::Metrics` (numpy only; without the
-XLA profiler context). The timers read the host clock: on the GPU they time
-the host's enqueue of a stage unless the stage ends in a host read or a
-synchronize.
+Own copy of `sgslam_tpu/utils/timing.py` (`Metrics`, numpy only), with
+`xla_trace` as a `torch.profiler` trace of the same shape. The timers read
+the host clock: on the GPU they time the host's enqueue of a stage unless
+the stage ends in a host read or a synchronize.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 
 import numpy as np
+import torch
 
 
 class Metrics:
@@ -50,3 +52,26 @@ class Metrics:
             else:
                 lines.append(f"{k:30s} {s}")
         return "\n".join(lines)
+
+
+
+@contextlib.contextmanager
+def xla_trace(logdir: str):
+    """Profiler context, the port's counterpart of the reference's XLA
+    trace: `torch.profiler` over the CPU and, where there is one, the card;
+    the trace is written into `logdir` as a Chrome/TensorBoard `.json`
+    when the block ends. Yields the profiler."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(logdir))
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()

@@ -134,3 +134,18 @@ def test_camera_functions(rng):
     np.testing.assert_array_equal(
         tcam.in_image(ct, torch.from_numpy(uv), 19.0).numpy(),
         np.asarray(jcam.in_image(cj, jnp.asarray(uv), 19.0)))
+
+
+def test_distort_normalized(rng):
+    """`distort_normalized` on normalized coordinates within the TUM1
+    camera's field of view: the same polynomial, f32 rounding of ~1."""
+    cam_args = dict(fx=517.3, fy=516.5, cx=318.6, cy=255.3, k1=0.262383,
+                    k2=-0.953104, p1=-0.005358, p2=0.002628, k3=1.163314)
+    xy = rng.uniform([-0.6, -0.5], [0.6, 0.5], size=(500, 2)).astype(
+        np.float32)
+    _close(tcam.distort_normalized(tcam.Camera(**cam_args),
+                                   torch.from_numpy(xy)),
+           jcam.distort_normalized(jcam.Camera(**cam_args), jnp.asarray(xy)))
+    # no distortion: the identity
+    _close(tcam.distort_normalized(tcam.Camera(fx=1, fy=1, cx=0, cy=0),
+                                   torch.from_numpy(xy)), xy)

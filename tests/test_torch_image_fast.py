@@ -106,3 +106,13 @@ def test_fast_and_nms_on_same_level_image(images, level):
     np.testing.assert_array_equal(
         tfast.border_mask(h, w, 19).numpy(),
         np.asarray(jfast.border_mask(h, w, 19)))
+
+
+@pytest.mark.parametrize("kind", ["random", "rendered"])
+def test_max_pool_3x3(images, kind):
+    """The 3x3 max filter: maxima of the same values, so exact; the border
+    is padded with -inf as the reference's reduce_window pads it."""
+    img = images[kind]
+    np.testing.assert_array_equal(
+        timage.max_pool_3x3(torch.from_numpy(img)).numpy(),
+        np.asarray(jimage.max_pool_3x3(jnp.asarray(img))))

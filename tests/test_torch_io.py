@@ -116,3 +116,22 @@ def test_rpe_and_association():
     np.testing.assert_array_equal(ia_t, ia_j)
     np.testing.assert_array_equal(ib_t, ib_j)
     assert 100 < len(ia_t) < 300
+
+
+def test_xla_trace_writes_a_trace(tmp_path):
+    """`utils.timing.xla_trace`, the counterpart of the reference's XLA
+    profiler context: a torch.profiler trace of the block lands in the
+    directory, with the block's operations in it."""
+    import glob
+    import json
+
+    from sgslam_tpu_torch.utils import timing
+
+    with timing.xla_trace(str(tmp_path / "trace")) as prof:
+        torch.cumsum(torch.arange(100.0), 0)
+    assert prof is not None
+    files = glob.glob(str(tmp_path / "trace" / "*.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::cumsum" in names

@@ -27,9 +27,12 @@ sys.meta_path.insert(0, Refuse())
 import sgslam_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sgslam_tpu_torch.__path__,
                                               "sgslam_tpu_torch.")]
-# the stereo, monocular and dataset-CLI modules by name, then every module
+# the stereo, monocular, dataset-CLI, segment-sum, scale-out and detector
+# training modules by name, then every module
 NAMED = ["ops.stereo", "optim.initializer", "slam.mono", "io.tum",
-         "io.native", "viz", "viewer", "run_tum"]
+         "io.native", "viz", "viewer", "run_tum", "ops.segment",
+         "parallel.dist_ba", "parallel.map_partition", "parallel.multihost",
+         "parallel.dryrun", "models.detector_train", "train_detector"]
 missing = [n for n in NAMED if "sgslam_tpu_torch." + n not in names]
 for name in ["sgslam_tpu_torch." + n for n in NAMED] + names:
     importlib.import_module(name)

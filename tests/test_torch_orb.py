@@ -135,3 +135,14 @@ def test_descriptors_bit_identical_on_same_patches(rng):
                             torch.from_numpy(angles)).numpy()
     np.testing.assert_array_equal(out.view(np.uint32), ref)
     assert torb.level_budgets(TCFG.orb) == jorb.level_budgets(JCFG.orb)
+
+
+def test_scale_factors():
+    """The per-level scale factors of the default and a custom pyramid:
+    the same float64 powers."""
+    from sgslam_tpu.ops import orb as jorb
+    from sgslam_tpu_torch.ops import orb as torb
+
+    for kw in ({}, {"scale_factor": 1.3, "n_levels": 5}):
+        assert torb.scale_factors(tcfg.OrbConfig(**kw)) == \
+            jorb.scale_factors(jcfg.OrbConfig(**kw))
