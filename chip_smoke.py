@@ -31,8 +31,9 @@ Phases, each of which fails the run if it fails:
   6. capacity pressure at a smaller depth: 120 frames at 320x240 into 24
      keyframe slots, so that map compaction must fire;
   7. the semantic system at full width, the slice's main path:
-     `tools/run_eval.py`'s `dynamic_640_3walkers_fastrot` sequence (150
-     frames at 640x480, three walkers, fast rotation, rendered on the card)
+     `sgslam_tpu_torch.run_eval`'s `dynamic_640_3walkers_fastrot` sequence
+     and configuration (150 frames at 640x480, three walkers, fast
+     rotation, rendered on the card by run_eval's `_render`)
      through `System(cfg, enable_loop=False).track_rgbd` with the shipped
      SSDLite detector, the dynamic-feature cull (one K1 launch per frame
      for the frame-to-frame matches), tracking with the back-end and the
@@ -52,18 +53,21 @@ Phases, each of which fails the run if it fails:
      and K1 launches, prints frames/s as bench.py computes it and the
      per-chunk stage times and per-keyframe loop-closing times (CUDA
      events);
- 11. loop closing at full width: (a) tools/run_eval.py's
+ 11. loop closing at full width: (a) run_eval's
      `static_640_circuit_2laps_stress` sequence (240 frames at 640x480,
      2.15 laps of the closed room), as rendered and with its images moved
-     by one ulp (three seeds), through the default `System` and through
-     `ChunkedTracker(chunk=4, fetch_every=6, loop=LoopCloser)`: ATE < 0.05
+     by one ulp (three seeds), through run_eval's System path
+     (`make_system`, `drive_system`) and its chunked path
+     (`ChunkedTracker(chunk=4, fetch_every=6, loop=LoopCloser)` from
+     `make_chunked`, driven by `drive_chunked`): ATE < 0.05
      m as rendered (run_eval's gate), < 0.25 m moved, and on each path at
      least one run must close a loop and end under 0.05 m; one global-BA
      pass's time and peak memory at the default capacity; (b) the loop
      fixtures of tests/test_loop_e2e.py and tests/test_chunked_full_system
      .py at 640x480 (a drift injected before the revisit), through `System`
      and `ChunkedTracker`: each must close a loop and the System path must
-     halve its keyframe ATE, with the essential graph, the fusion and each
+     halve its keyframe ATE (`debug_stress.kf_ate`), with the essential
+     graph, the fusion and each
      global-BA slice timed; the chunked run runs twice and must give the
      same keyframe poses and map points to the bit;
  12. relocalization at 320x240: tests/test_chunked_full_system.py's
@@ -73,9 +77,9 @@ Phases, each of which fails the run if it fails:
      gate (< 0.06 m) must hold on at least one run;
  13. stereo at full width: run_eval's `stereo_640_walk` (120 frames at
      640x480, pairs rendered on the card by `frame_stereo`) through
-     `System(cfg, enable_semantic=False, enable_mapping=False)
-     .track_stereo` and `ChunkedStereoTracker(chunk=4, fetch_every=6,
-     loop=LoopCloser)`, both under run_eval's 0.04 m stereo gate, each
+     run_eval's System path (`track_stereo`) and its chunked path
+     (`ChunkedStereoTracker(chunk=4, fetch_every=6, loop=LoopCloser)`),
+     both under run_eval's 0.04 m stereo gate, each
      stage timed and `stereo_match` alone; `ChunkedSemanticStereoTracker`
      at tests/test_chunked_parity.py's 320x240 (26 dynamic frames, 0.12 m
      gate); the stereo + mapper guard raises;
@@ -100,14 +104,20 @@ Phases, each of which fails the run if it fails:
      step card against CPU on the same batch (TF32 off), the gradient gap
      read on two more seeds and batches, and with the localization term
      dropped on the card's side, which the limit must catch;
+ 18. the accuracy suite's entry point: `run_eval.main(["--only",
+     "static_640_tum1_distortion", ...])` at full length (120 frames at
+     640x480 on the TUM1-distorted camera, System and chunked paths):
+     both ATEs under the row's 0.03 m gate, `parity_ok`, and K1 and the
+     segment sum launched on each path;
   then the segment sum against its plain version (to the bit) at every
-  call site and shape that phases 4-17 gave it (the first call of each is
+  call site and shape that phases 4-18 gave it (the first call of each is
   recorded), the lengths of its segments per phase and site, and its time
   at phase 10's most launched shape and at the shape with the longest
   segments; then print the `kernels` line, the card's name and power
   limit, and last `{"ok": true, "device": ...}`.
 Both kernels' launch counts are set to 0 just before each path of phases
-4-8 and 10-16 (each run of 11 and 12, each path of 13, both calls of 15)
+4-8, 10-16 and 18 (each run of 11 and 12, each path of 13 and 18, both
+calls of 15)
 and read just after; each path that runs the BA, the pose graph or the
 mapper must have launched the segment sum. The `kernels` line carries
 phase 10's counts (the timed window of bench.py's schedule). Phase 7's
@@ -120,6 +130,7 @@ exits non-zero and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -216,6 +227,10 @@ TOL_STEP_POINT_MEDIAN = 1e-3
 # the localization term dropped on the card's side: 1.91. The limit sits
 # between the two. AdamW given the same gradients within 2.5e-7
 TRAIN_STEPS, TRAIN_BATCH = 30, 16
+# phase 18: one sequence of the accuracy suite through `run_eval.main`
+EVAL_SEQUENCE = "static_640_tum1_distortion"
+EVAL_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "eval_chip_smoke.json")
 TRAIN_GRAD_READINGS = [(1, 3), (2, 6)]     # (seed, batch) beside (0, 0)
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = 2e-2
@@ -680,17 +695,19 @@ def _split_text(stages):
     return ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
 
 
+def _ate_cw(est_cw, gt_wc):
+    """run_eval's ATE, after checking that the trajectory is whole (one
+    pose per ground-truth frame) and finite."""
+    from sgslam_tpu_torch import run_eval
+
+    est = np.asarray(est_cw)
+    if est.shape != (len(gt_wc), 7) or not np.isfinite(est).all():
+        raise AssertionError(f"trajectory {est.shape} not finite")
+    return run_eval.ate_cw(est, gt_wc)
+
+
 def _ate(tracker, gt_wc):
-    import torch
-
-    from sgslam_tpu_torch.eval import ate
-    from sgslam_tpu_torch.geometry import se3
-
-    est_cw = torch.as_tensor(tracker.poses_cw())
-    if est_cw.shape != (len(gt_wc), 7) or not bool(
-            torch.isfinite(est_cw).all()):
-        raise AssertionError(f"trajectory {tuple(est_cw.shape)} not finite")
-    return ate.ate_rmse(se3.se3_inverse(est_cw).numpy(), gt_wc)[0]
+    return _ate_cw(tracker.poses_cw(), gt_wc)
 
 
 def phase_main_path(dev, kernels, cfg=None, n_frames=N_FRAMES):
@@ -904,15 +921,19 @@ def phase_capacity_pressure(dev, n_frames=LIVE_FRAMES):
         raise AssertionError("capacity pressure: K1 never launched")
 
 
-def semantic_config():
-    """tools/run_eval.py's configuration: the default production config
-    at 640x480 with a keyframe at least every 6 frames."""
-    from sgslam_tpu_torch import config
+def eval_sequence(name, cfg, dev, n_frames=None):
+    """run_eval's sequence `name` rendered on `dev` through its `_render`:
+    (SyntheticSequence, frames, ground truth [n, 7] T_wc). A run of fewer
+    frames takes the first frames of the sequence."""
+    from sgslam_tpu_torch import run_eval
 
-    return config.synthetic_config(
-        width=640, height=480,
-        tracker=config.TrackerConfig(max_frames_between_kf=6,
-                                     depth_threshold_factor=70.0))
+    spec = run_eval._sequences(False, dev)[name]
+    if n_frames is not None:
+        spec = dict(spec, n=n_frames, poses=spec["poses"][:n_frames],
+                    people=None if spec["people"] is None
+                    else spec["people"][:n_frames])
+    seq, frames = run_eval._render(cfg, spec, dev)
+    return seq, frames, seq.poses.cpu().numpy()
 
 
 def objects_config():
@@ -930,30 +951,18 @@ def _rgb(gray):
     return gray[..., None].expand(-1, -1, 3)
 
 
-def semantic_sequence(cfg, dev, n_frames=SEM_FRAMES):
-    """run_eval's dynamic_640_3walkers_fastrot, rendered on `dev` (a run
-    of fewer frames takes the first frames of the 150-frame walk)."""
-    from sgslam_tpu_torch.io import synthetic
-
-    return synthetic.SyntheticSequence(
-        cfg.camera, n_frames=n_frames, device=dev,
-        poses=synthetic.make_walk_trajectory(n_frames, yaw_amp=0.35,
-                                             device=dev),
-        people=synthetic.walker_tracks(n_frames, 3, depth0=1.6, half_h=0.62,
-                                       device=dev))
-
-
 def phase_semantic_system(dev, kernels, cfg=None, n_frames=SEM_FRAMES):
     """The slice's main path: `System.track_rgbd` with the detector, the
     cull, tracking with the back-end and the mapper."""
     import torch
 
+    from sgslam_tpu_torch import run_eval
     from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.slam.system import System
 
-    cfg = cfg or semantic_config()
-    seq = semantic_sequence(cfg, dev)
-    frames = [seq.frame(i) for i in range(n_frames)]
+    cfg = cfg or run_eval._make_cfg(False)
+    _, frames, gt = eval_sequence("dynamic_640_3walkers_fastrot", cfg, dev,
+                                  n_frames)
     torch.cuda.synchronize()
     s = System(cfg, device=dev)               # loop closing on: the default
     timer, backend = StageTimer(), StageTimer()
@@ -975,7 +984,7 @@ def phase_semantic_system(dev, kernels, cfg=None, n_frames=SEM_FRAMES):
     _segment_count("phase 7, semantic System")
 
     tracked = len(s.tracker.n_inliers_hist)
-    rmse = _ate(s.tracker, seq.poses[:n_frames].cpu().numpy())
+    rmse = _ate(s.tracker, gt)
     occupied = int((s.mapper.occupancy_2d() > 0).sum())
     n_obj = int(s.mapper.objects.valid.sum())
     per_frame = timer.groups()
@@ -1073,11 +1082,12 @@ def phase_card_vs_cpu(dev, det_frames, pair):
     tables, and `reject_dynamic_matched` with the same samples."""
     import torch
 
+    from sgslam_tpu_torch import run_eval
     from sgslam_tpu_torch.models.detector import Detector2D
     from sgslam_tpu_torch.semantic import dynamic
     from sgslam_tpu_torch.slam import tracking
 
-    cfg = semantic_config()
+    cfg = run_eval._make_cfg(False)
     d_dev = Detector2D(cfg.detector, device=dev)
     d_cpu = Detector2D(cfg.detector, device="cpu")
     logit_err, box_err, score_err = 0.0, 0.0, 0.0
@@ -1257,55 +1267,6 @@ def phase_bench_path(dev, kernels, cfg=None, warm=BENCH_WARM,
     return fps, seg_launches
 
 
-def _ate_cw(est_cw, gt_wc):
-    import torch
-
-    from sgslam_tpu_torch.eval import ate
-    from sgslam_tpu_torch.geometry import se3
-
-    est = torch.as_tensor(np.asarray(est_cw))
-    if est.shape != (len(gt_wc), 7) or not bool(torch.isfinite(est).all()):
-        raise AssertionError(f"trajectory {tuple(est.shape)} not finite")
-    return ate.ate_rmse(se3.se3_inverse(est).numpy(), gt_wc)[0]
-
-
-def one_ulp(x, seed):
-    """x with every element multiplied by 1 +- 2**-23 (the signs from a
-    numpy seed), as tools/parity_spread.py moves the reference's inputs."""
-    import torch
-
-    signs = np.random.default_rng(seed).choice([-1, 1], size=tuple(x.shape))
-    f = 1 + torch.as_tensor(signs, device=x.device,
-                            dtype=torch.float64) * 2.0 ** -23
-    return (x.to(torch.float64) * f).to(x.dtype)
-
-
-def moved_frames(frames, seed):
-    """tools/parity_spread.py's one-ulp move of a sequence: frame i's gray
-    by seed 2000 s + i, its depth by seed 3000 s + i."""
-    return [(one_ulp(g, 2000 * seed + i), one_ulp(d, 3000 * seed + i))
-            for i, (g, d) in enumerate(frames)]
-
-
-def _run_chunked(ct, frames):
-    """run_eval's `_run_chunked`: bootstrap, whole chunks, the tail."""
-    import torch
-
-    i = 0
-    while ct._carry is None and i < len(frames):
-        ct.bootstrap(*frames[i])
-        i += 1
-    while i + BENCH_CHUNK <= len(frames):
-        fr = frames[i:i + BENCH_CHUNK]
-        ct.process_chunk(torch.stack([f[0] for f in fr]),
-                         torch.stack([f[1] for f in fr]))
-        i += BENCH_CHUNK
-    if i < len(frames):
-        ct.process_tail(torch.stack([f[0] for f in frames[i:]]),
-                        torch.stack([f[1] for f in frames[i:]]))
-    ct.flush()
-
-
 def _stress_gate(path, label, rmse):
     """run_eval's ATE gate on the sequence as rendered; a moved run must
     stay within STRESS_SANE_M."""
@@ -1315,31 +1276,32 @@ def _stress_gate(path, label, rmse):
                              f"{rmse:.4f} m (gate {gate} m)")
 
 
-def phase_loop_closing(dev, cfg=None, n_frames=STRESS_FRAMES, loops=2.15,
+def phase_loop_closing(dev, cfg=None, n_frames=None, loops=None,
                        moved_seeds=STRESS_MOVED_SEEDS):
-    """run_eval.py's 2-lap stress circuit through the default System and
-    the chunked runner with a LoopCloser, as rendered (under run_eval's ATE
+    """run_eval's 2-lap stress circuit through its System path and its
+    chunked runner with a LoopCloser, as rendered (under run_eval's ATE
     gate) and with its images moved by one ulp (under STRESS_SANE_M). Each
     path must close a loop and end under run_eval's gate on at least one
     of its runs: whether a loop closes on a given input, and where its
     correction leaves the trajectory, is chaotic for the reference as for
     the port (ROADMAP section 3). One global-BA pass at the default
-    capacity is timed on the System's map."""
+    capacity is timed on the System's map. A rehearsal passes `n_frames`
+    and `loops` for a shorter circuit."""
     import torch
 
+    from sgslam_tpu_torch import run_eval
+    from sgslam_tpu_torch.debug_stress import moved_frames
     from sgslam_tpu_torch.io import synthetic
     from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.optim.global_ba import global_ba_step
-    from sgslam_tpu_torch.slam import scan_pipeline
-    from sgslam_tpu_torch.slam.loop_closing import LoopCloser
-    from sgslam_tpu_torch.slam.system import System
 
-    cfg = cfg or semantic_config()
-    seq = synthetic.SyntheticSequence(
-        cfg.camera, n_frames=n_frames, planes=synthetic.ROOM_CLOSED,
-        poses=synthetic.make_circuit_trajectory(n_frames, loops=loops,
-                                                device=dev), device=dev)
-    rendered = [seq.frame(i) for i in range(n_frames)]
+    cfg = cfg or run_eval._make_cfg(False)
+    spec = run_eval._sequences(False, dev)["static_640_circuit_2laps_stress"]
+    if n_frames is not None:
+        spec = dict(spec, n=n_frames, poses=synthetic.make_circuit_trajectory(
+            n_frames, loops=loops, device=dev))
+    n_frames = spec["n"]
+    seq, rendered = run_eval._render(cfg, spec, dev)
     gt = seq.poses.cpu().numpy()
     inputs = [("rendered", rendered)] + [
         (f"moved by one ulp (seed {s})", moved_frames(rendered, s))
@@ -1361,14 +1323,12 @@ def phase_loop_closing(dev, cfg=None, n_frames=STRESS_FRAMES, loops=2.15,
     gba_ms = peak = None
     for label, frames in inputs:
         torch.cuda.reset_peak_memory_stats(dev)
-        s = System(cfg, enable_semantic=False, enable_mapping=False,
-                   device=dev)
+        s = run_eval.make_system(cfg, spec, None, dev)
         timer = StageTimer()
         s.loop.on_stage = timer
         _zero_counts()
         t0 = time.perf_counter()
-        for gray, depth in frames:
-            s.track_rgbd(gray, depth)
+        run_eval.drive_system(s, spec, frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         _segment_count(f"phase 11a, System, {label}")
@@ -1402,15 +1362,12 @@ def phase_loop_closing(dev, cfg=None, n_frames=STRESS_FRAMES, loops=2.15,
         del s
 
         torch.cuda.reset_peak_memory_stats(dev)
-        loop = LoopCloser(cfg, device=dev)
-        timer = StageTimer()
+        ct = run_eval.make_chunked(cfg, spec, None, dev)
+        loop, timer = ct.loop, StageTimer()
         loop.on_stage = timer
-        ct = scan_pipeline.ChunkedTracker(cfg, chunk=BENCH_CHUNK,
-                                          fetch_every=BENCH_FETCH, loop=loop,
-                                          device=dev)
         _zero_counts()
         t0 = time.perf_counter()
-        _run_chunked(ct, frames)
+        run_eval.drive_chunked(ct, frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         _segment_count(f"phase 11a, ChunkedTracker, {label}")
@@ -1460,15 +1417,6 @@ def _inject_drift(m, xi):
     return _apply_correction(m, m.kf_pose, new), se3.se3_inverse(D[n_kf - 1])
 
 
-def _kf_ate(m, gt_wc):
-    from sgslam_tpu_torch.eval import ate
-    from sgslam_tpu_torch.geometry import se3
-
-    v = m.kf_valid
-    est = se3.se3_inverse(m.kf_pose[v]).cpu().numpy()
-    return ate.ate_rmse(est, gt_wc[m.kf_frame_id[v].cpu().numpy()])[0]
-
-
 def phase_forced_loop(dev, cfg=None):
     """The loop fixtures of tests/test_loop_e2e.py (System) and
     tests/test_chunked_full_system.py (ChunkedTracker) at full width: the
@@ -1481,6 +1429,7 @@ def phase_forced_loop(dev, cfg=None):
     0.300 m under one-ulp image moves (ROADMAP section 3)."""
     import torch
 
+    from sgslam_tpu_torch.debug_stress import kf_ate
     from sgslam_tpu_torch.geometry import se3
     from sgslam_tpu_torch.io import synthetic
     from sgslam_tpu_torch.slam import scan_pipeline
@@ -1520,12 +1469,12 @@ def phase_forced_loop(dev, cfg=None):
     s.tracker.map, dl = _inject_drift(s.tracker.map, FORCED_DRIFT_SYSTEM)
     s.tracker.Tcw = se3.se3_compose(s.tracker.Tcw, dl)
     s.tracker.last_Tcw = se3.se3_compose(s.tracker.last_Tcw, dl)
-    drifted = _kf_ate(s.tracker.map, gt)
+    drifted = kf_ate(s.tracker.map, gt)
     for g, d in frames[70:]:
         s.track_rgbd(g, d)
     torch.cuda.synchronize()
     _segment_count("phase 11b, System")
-    final = _kf_ate(s.tracker.map, gt)
+    final = kf_ate(s.tracker.map, gt)
     report("System", s.loop, timer, drifted, final,
            time.perf_counter() - t0)
     if clean or not s.loop.loops_closed:
@@ -1568,11 +1517,11 @@ def phase_forced_loop(dev, cfg=None):
                 ct._map, dl = _inject_drift(ct._map, FORCED_DRIFT_CHUNKED)
                 ct._carry.Tcw = se3.se3_compose(ct._carry.Tcw, dl)
                 ct._ref_pose_ins = ct._map.kf_pose[ct._ref_slot].cpu().numpy()
-                drifted = _kf_ate(ct._map, gt)
+                drifted = kf_ate(ct._map, gt)
         ct.flush()
         torch.cuda.synchronize()
         _segment_count("phase 11b, ChunkedTracker")
-        final = _kf_ate(ct.map, gt)
+        final = kf_ate(ct.map, gt)
         report("ChunkedTracker(chunk=4, fetch_every=2, loop)", loop, timer,
                drifted, final, time.perf_counter() - t0)
         if clean or ct.loops_closed < 1:
@@ -1653,6 +1602,7 @@ def phase_relocalization(dev, moved_seeds=RELOC_MOVED_SEEDS):
     CPU on 5 of 9 (tools/parity_spread.py reloc)."""
     import torch
 
+    from sgslam_tpu_torch.debug_stress import moved_frames
     from sgslam_tpu_torch.io import synthetic
     from sgslam_tpu_torch.ops import hamming_cuda as hc
 
@@ -1691,18 +1641,6 @@ def phase_relocalization(dev, moved_seeds=RELOC_MOVED_SEEDS):
         raise AssertionError(f"relocalization: the pose gate holds on no "
                              f"run: {best}")
 
-def stereo_sequence(cfg, dev, n_frames=STEREO_FRAMES):
-    """run_eval's stereo_640_walk: the room walk with yaw amplitude 0.25,
-    no people, its (left, right) pairs rendered on `dev`."""
-    from sgslam_tpu_torch.io import synthetic
-
-    seq = synthetic.SyntheticSequence(
-        cfg.camera, n_frames=n_frames, device=dev,
-        poses=synthetic.make_walk_trajectory(n_frames, yaw_amp=0.25,
-                                             device=dev))
-    return seq, [seq.frame_stereo(i)[:2] for i in range(n_frames)]
-
-
 def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     """Stereo at full width: run_eval's stereo_640_walk through
     `System.track_stereo` (loop closing on) and `ChunkedStereoTracker`
@@ -1712,6 +1650,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     `stereo_match` alone at the path's shapes."""
     import torch
 
+    from sgslam_tpu_torch import run_eval
     from sgslam_tpu_torch.io import synthetic
     from sgslam_tpu_torch.mapping.semantic_mapper import SemanticMapper
     from sgslam_tpu_torch.models.detector import Detector2D
@@ -1719,25 +1658,26 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     from sgslam_tpu_torch.ops import orb
     from sgslam_tpu_torch.ops.stereo import stereo_match
     from sgslam_tpu_torch.slam import scan_pipeline
-    from sgslam_tpu_torch.slam.loop_closing import LoopCloser
-    from sgslam_tpu_torch.slam.system import System
 
-    cfg = cfg or semantic_config()
-    seq, pairs = stereo_sequence(cfg, dev, n_frames)
-    gt = seq.poses.cpu().numpy()
+    name = "stereo_640_walk"
+    cfg = cfg or run_eval._make_cfg(False)
+    _, pairs, gt = eval_sequence(name, cfg, dev, n_frames)
+    spec = dict(run_eval._sequences(False, dev)[name], n=n_frames)
     torch.cuda.synchronize()
 
     # (a) System.track_stereo, loop closing on
-    s = System(cfg, enable_semantic=False, enable_mapping=False, device=dev)
+    s = run_eval.make_system(cfg, spec, None, dev)
     timer = StageTimer()
     s.on_stage = timer
     _zero_counts()
     t0 = time.perf_counter()
     kf_frames = []
-    for i, (gl, gr) in enumerate(pairs):
-        s.track_stereo(gl, gr)
+
+    def on_frame(i):
         if s.tracker.kf_inserted:
             kf_frames.append(i)
+
+    run_eval.drive_system(s, spec, pairs, on_frame)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = hc.hamming_kernel.launches
@@ -1777,14 +1717,12 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
         raise AssertionError(f"stereo System: K1 launched {launches} times")
 
     # (b) ChunkedStereoTracker with a loop closer, run_eval's schedule
-    ct = scan_pipeline.ChunkedStereoTracker(
-        cfg, chunk=BENCH_CHUNK, fetch_every=BENCH_FETCH,
-        loop=LoopCloser(cfg, device=dev), device=dev)
+    ct = run_eval.make_chunked(cfg, spec, None, dev)
     chunk_timer = StageTimer()
     ct.on_chunk_stage = chunk_timer
     _zero_counts()
     t0 = time.perf_counter()
-    _run_chunked(ct, pairs)
+    run_eval.drive_chunked(ct, pairs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = hc.hamming_kernel.launches
@@ -1814,7 +1752,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
         scfg, Detector2D(scfg.detector, device=dev), chunk=BENCH_CHUNK,
         fetch_every=2, device=dev)
     _zero_counts()
-    _run_chunked(st, spairs)
+    run_eval.drive_chunked(st, spairs)
     launches = hc.hamming_kernel.launches
     _segment_count("phase 13c, ChunkedSemanticStereoTracker")
     est = st.poses_cw()
@@ -2187,6 +2125,78 @@ def phase_detector_training(dev, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
     return float(np.median(step_ms[1:]))
 
 
+@contextlib.contextmanager
+def launches_per_path():
+    """Within the block, run_eval's `_run_system` and `_run_chunked` set
+    K1's and the segment sum's launch counts to 0 before each run and read
+    them after it; yields the list of (path, K1 launches, segment-sum
+    launches) in the order the paths ran."""
+    import torch
+
+    from sgslam_tpu_torch import run_eval
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.ops import segment
+
+    counts = []
+
+    def counted(fn, path):
+        def run_path(*a, **k):
+            _zero_counts()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            counts.append((path, hc.hamming_kernel.launches,
+                           segment.segment_kernel.launches))
+            return out
+        return run_path
+
+    originals = {p: getattr(run_eval, p)
+                 for p in ("_run_system", "_run_chunked")}
+    for path, fn in originals.items():
+        setattr(run_eval, path, counted(fn, path[5:]))
+    try:
+        yield counts
+    finally:
+        for path, fn in originals.items():
+            setattr(run_eval, path, fn)
+
+
+def phase_eval_suite(dev, name=EVAL_SEQUENCE):
+    """`run_eval.main(["--only", name, ...])` at full length: the
+    sequence through run_eval's System path and its chunked path, with
+    K1's and the segment sum's counts set to 0 before each path and read
+    after it. Both paths must pass the row's gate with parity, and each
+    must have launched both kernels."""
+    from sgslam_tpu_torch import run_eval
+
+    argv = ["--only", name, "--out", EVAL_OUT]
+    with launches_per_path() as counts:
+        t0 = time.perf_counter()
+        res = run_eval.main(argv + (["--cpu"] if dev.type == "cpu" else []))
+        wall = time.perf_counter() - t0
+    row = res["sequences"][name]
+    sy, ch = row["system"], row["chunked"]
+    print(f"[eval] run_eval.main({argv}) in {wall:.1f} s on "
+          f"{res['device']['name']} ({res['device']['power_limit']}): "
+          f"{row['n_frames']} frames, distortion {row['distortion']}; "
+          f"System ATE {sy['ate']:.5f} m, {sy['keyframes']} keyframes, "
+          f"state {sy['state']}, {sy['wall_s']} s; chunked ATE "
+          f"{ch['ate']:.5f} m, {ch['keyframes']} keyframes, lost frames "
+          f"{ch['lost_frames']}, {ch['wall_s']} s; gate {row['gate_ate_m']}"
+          f" m, parity_ok {row['parity_ok']}; (path, K1 launches, "
+          f"segment-sum launches): {counts}")
+    if not (sy["ate"] < row["gate_ate_m"] and ch["ate"] < row["gate_ate_m"]
+            and row["parity_ok"]):
+        raise AssertionError(f"eval {name}: System ATE {sy['ate']:.4f} m, "
+                             f"chunked {ch['ate']:.4f} m, parity_ok "
+                             f"{row['parity_ok']}")
+    if [c[0] for c in counts] != ["system", "chunked"]:
+        raise AssertionError(f"eval {name}: paths run {counts}")
+    for path, k1, seg in counts:
+        if k1 < 1 or seg < 1:
+            raise AssertionError(f"eval {name}, {path}: K1 launched {k1} "
+                                 f"times, the segment sum {seg}")
+
+
 def _grads(dev, steps, batch, seed, b, drop_loc=False):
     """A fresh trainer's model (seed `seed`) with the gradients of
     `batched_loss` on batch `b`; `drop_loc` leaves the localization term
@@ -2250,8 +2260,10 @@ def main() -> int:
     from sgslam_tpu_torch import config
 
     t_start = time.perf_counter()
+    from sgslam_tpu_torch import run_eval
+
     shapes = k1_shapes([config.synthetic_config(640, 480), eval_config(),
-                        capacity_config(), semantic_config(),
+                        capacity_config(), run_eval._make_cfg(False),
                         objects_config(), kidnap_config(), mono_config()])
     popc = phase_build()
     from sgslam_tpu_torch.ops import segment
@@ -2282,6 +2294,7 @@ def main() -> int:
     run("15", phase_cli)
     run("16", phase_scale_out)
     run("17", phase_detector_training)
+    run("18", phase_eval_suite)
     rec.phase = "-"
     kernels["segment_sum"] = phase_segment(dev, rec, seg_launches)
     if any(k["launches"] < 1 for k in kernels.values()):

@@ -100,11 +100,11 @@ def small_config():
         orb=config.OrbConfig(max_keypoints=256))
 
 
-def load_problem(device, use_asset: bool = True):
-    """(cfg, map, label): the eval map where it exists, else the synthetic
-    map C=6, P=384."""
-    if use_asset and os.path.exists(EVAL_MAP):
-        m, _ = checkpoint.load_map(EVAL_MAP, device=device)
+def load_problem(device, use_asset: bool = True, path: str = EVAL_MAP):
+    """(cfg, map, label): the tracked map at `path` (by default the eval
+    map) where it exists, else the synthetic map C=6, P=384."""
+    if use_asset and os.path.exists(path):
+        m, _ = checkpoint.load_map(path, device=device)
         cfg = config.synthetic_config(width=640, height=480)
         label = (f"real tracked map C={int(m.kf_valid.sum())}, "
                  f"P={int(m.pt_valid.sum())}")
@@ -186,10 +186,10 @@ def grid_shape(n_devices: int):
     return n_kf, n_devices // n_kf
 
 
-def _worker(rank, world_size, dev, use_asset, iters, seed, out):
+def _worker(rank, world_size, dev, use_asset, iters, seed, out, path):
     n_kf, n_pt = grid_shape(world_size)
     mesh = dist_ba.make_mesh(n_kf, n_pt, device=dev)
-    cfg, m, label = load_problem(dev, use_asset)
+    cfg, m, label = load_problem(dev, use_asset, path)
     report = dryrun(mesh, cfg, m, label, iters=iters, seed=seed)
     if rank == 0:
         report.pop("poses")
@@ -200,13 +200,14 @@ def _worker(rank, world_size, dev, use_asset, iters, seed, out):
 
 def dryrun_multichip(n_devices: int = 1, device="cuda", iters: int = ITERS,
                      seed: int = 1, use_asset: bool = True,
-                     timeout: float = 900.0) -> dict:
+                     timeout: float = 900.0, path: str = EVAL_MAP) -> dict:
     """`dryrun` through `n_devices` spawned processes on a (kf, pt) grid;
     raises AssertionError unless the cost fell and the result is finite."""
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "report.json")
-        multihost.spawn(_worker, n_devices, (use_asset, iters, seed, out),
-                        device=device, timeout=timeout)
+        multihost.spawn(_worker, n_devices,
+                        (use_asset, iters, seed, out, path), device=device,
+                        timeout=timeout)
         with open(out) as f:
             report = json.load(f)
     if not report["ok"]:
@@ -224,11 +225,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--synthetic", action="store_true",
                     help="the small synthetic map instead of eval_map.npz")
+    ap.add_argument("--map", default=EVAL_MAP,
+                    help="the tracked map to perturb (default: the shipped "
+                         "eval_map.npz; e.g. build_eval_map's output)")
     a = ap.parse_args(argv)
     from sgslam_tpu_torch.parallel import dryrun as mod
 
     report = mod.dryrun_multichip(a.procs, a.device, a.iters, a.seed,
-                                  not a.synthetic)
+                                  not a.synthetic, path=a.map)
     print(json.dumps(report))
     return 0
 

@@ -27,12 +27,13 @@ sys.meta_path.insert(0, Refuse())
 import sgslam_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sgslam_tpu_torch.__path__,
                                               "sgslam_tpu_torch.")]
-# the stereo, monocular, dataset-CLI, segment-sum, scale-out and detector
-# training modules by name, then every module
+# the stereo, monocular, dataset-CLI, segment-sum, scale-out, detector
+# training, evaluation and asset-building modules by name, then every module
 NAMED = ["ops.stereo", "optim.initializer", "slam.mono", "io.tum",
          "io.native", "viz", "viewer", "run_tum", "ops.segment",
          "parallel.dist_ba", "parallel.map_partition", "parallel.multihost",
-         "parallel.dryrun", "models.detector_train", "train_detector"]
+         "parallel.dryrun", "models.detector_train", "train_detector",
+         "run_eval", "build_eval_map", "build_vocab", "debug_stress"]
 missing = [n for n in NAMED if "sgslam_tpu_torch." + n not in names]
 for name in ["sgslam_tpu_torch." + n for n in NAMED] + names:
     importlib.import_module(name)

@@ -8,6 +8,7 @@ relocalization computes.
     python tools/card_spread.py stress system|chunked [--device D]
                                 [--draws build/jax_draws.npz] -- -1,0,1
     python tools/card_spread.py correction system|chunked 0,1 [--device D]
+                                [--dump DIR]
     python tools/card_spread.py kidnap 4 11 [--device D]
     python tools/card_spread.py reloc-dump OUT.pt [--device D] [--cpu-draws]
     python tools/card_spread.py reloc-replay OUT.pt
@@ -28,7 +29,11 @@ default_rng(3000 s + i); s = -1 leaves them as rendered).
   correction    the stress circuit with its loop correction opened up: the
                 verified Sim3 against the ground truth's relative pose, the
                 keyframe ATE before, after the essential graph and fusion,
-                after the global BA, and the ATE at the end;
+                after the global BA, and the ATE at the end; `--dump DIR`
+                writes each correction's input (the map in the checkpoint
+                layout, the pair, the Sim3, the loop edges, the ground
+                truth) for `tools/parity_spread.py correction`, which runs
+                the reference's correction on it;
   kidnap        chip_smoke.py phase 12's run for seeds FIRST..LAST: the last
                 four frames' gaps to the map's own estimate;
   reloc-dump    phase 12's rendered run with its relocalization recorded:
@@ -225,6 +230,8 @@ def cmd_stress(path, seeds, device, draws_file):
     import torch
 
     import chip_smoke as cs
+    from sgslam_tpu_torch import run_eval
+    from sgslam_tpu_torch.debug_stress import moved_frames
     from sgslam_tpu_torch.io import synthetic
     from sgslam_tpu_torch.slam import loop_closing as lc
     from sgslam_tpu_torch.slam import scan_pipeline
@@ -244,7 +251,7 @@ def cmd_stress(path, seeds, device, draws_file):
         raise Closed((int(kf_cur), int(kf_loop)))
 
     lc.LoopCloser._correct = correct
-    cfg = cs.semantic_config()
+    cfg = run_eval._make_cfg(False)
     n = cs.STRESS_FRAMES
     seq = synthetic.SyntheticSequence(
         cfg.camera, n_frames=n, planes=synthetic.ROOM_CLOSED,
@@ -253,7 +260,7 @@ def cmd_stress(path, seeds, device, draws_file):
     rendered = [seq.frame(i) for i in range(n)]
     for s in seeds:
         t0 = time.time()
-        frames = rendered if s < 0 else cs.moved_frames(rendered, s)
+        frames = rendered if s < 0 else moved_frames(rendered, s)
         res = {"path": path, "seed": s, "closed": None}
         try:
             if path == "system":
@@ -264,7 +271,7 @@ def cmd_stress(path, seeds, device, draws_file):
                     res["frame"] = i
                     sy.track_rgbd(g, d)
             else:
-                cs._run_chunked(scan_pipeline.ChunkedTracker(
+                run_eval.drive_chunked(scan_pipeline.ChunkedTracker(
                     cfg, chunk=cs.BENCH_CHUNK, fetch_every=cs.BENCH_FETCH,
                     loop=lc.LoopCloser(cfg, device=dev, draws=draws),
                     device=dev), frames)
@@ -284,7 +291,7 @@ def _rel_err(T_est, T_gt):
             round(float(2 * np.degrees(np.arccos(w))), 3))
 
 
-def cmd_correction(path, seeds, device):
+def cmd_correction(path, seeds, device, dump=None):
     """The stress circuit with its loop correction opened up: the verified
     Sim3 against the ground truth's relative pose, the keyframe ATE before
     the correction, after the essential graph alone and after the whole
@@ -294,21 +301,18 @@ def cmd_correction(path, seeds, device):
     import torch
 
     import chip_smoke as cs
+    from sgslam_tpu_torch import run_eval
+    from sgslam_tpu_torch.debug_stress import kf_ate, moved_frames
     from sgslam_tpu_torch.geometry import se3
-    from sgslam_tpu_torch.io import synthetic
+    from sgslam_tpu_torch.io import checkpoint
     from sgslam_tpu_torch.slam import loop_closing as lc
     from sgslam_tpu_torch.slam import scan_pipeline
     from sgslam_tpu_torch.slam.system import System
 
     dev = _setup(device)
-    cfg = cs.semantic_config()
-    n = cs.STRESS_FRAMES
-    seq = synthetic.SyntheticSequence(
-        cfg.camera, n_frames=n, planes=synthetic.ROOM_CLOSED,
-        poses=synthetic.make_circuit_trajectory(n, loops=2.15, device=dev),
-        device=dev)
-    rendered = [seq.frame(i) for i in range(n)]
-    gt = seq.poses.cpu().numpy()
+    cfg = run_eval._make_cfg(False)
+    _, rendered, gt = cs.eval_sequence("static_640_circuit_2laps_stress",
+                                       cfg, dev)
     gt_cw = se3.se3_inverse(torch.as_tensor(gt)).to(dev)
     no_gba = dataclasses.replace(cfg, loop=dataclasses.replace(
         cfg.loop, run_global_ba=False))
@@ -325,19 +329,28 @@ def cmd_correction(path, seeds, device):
               f"the Sim3 vs the ground truth's relative pose "
               f"{_rel_err(se3.sim3_to_se3(S), rel_gt)} (m, deg); the map's "
               f"{_rel_err(rel_map, rel_gt)}; keyframe ATE before "
-              f"{cs._kf_ate(m, gt):.4f} m", flush=True)
+              f"{kf_ate(m, gt):.4f} m", flush=True)
+        if dump is not None:
+            os.makedirs(dump, exist_ok=True)
+            edges = self.loop_edges
+            checkpoint.save_map(
+                os.path.join(dump, f"correction_{kf_cur}_{kf_loop}.npz"), m,
+                {"kf_cur": kf_cur, "kf_loop": kf_loop, "S": S.cpu().numpy(),
+                 "gt": gt, "edges_i": [e[0] for e in edges],
+                 "edges_j": [e[1] for e in edges],
+                 "edges_s": np.reshape([e[2] for e in edges], (-1, 8))})
         eg = lc.LoopCloser(no_gba, device=dev)
         eg.loop_edges = list(self.loop_edges)
         m_eg, _ = correct(eg, m, kf_cur, kf_loop, S, cov)
         out = correct(self, m, kf_cur, kf_loop, S, cov)
         print(f"[correction] keyframe ATE after the essential graph and the "
-              f"fusion {cs._kf_ate(m_eg, gt):.4f} m, after the global BA "
-              f"{cs._kf_ate(out[0], gt):.4f} m", flush=True)
+              f"fusion {kf_ate(m_eg, gt):.4f} m, after the global BA "
+              f"{kf_ate(out[0], gt):.4f} m", flush=True)
         return out
 
     lc.LoopCloser._correct = spy
     for seed in seeds:
-        frames = rendered if seed < 0 else cs.moved_frames(rendered, seed)
+        frames = rendered if seed < 0 else moved_frames(rendered, seed)
         if path == "system":
             sy = System(cfg, enable_semantic=False, enable_mapping=False,
                         device=dev)
@@ -349,11 +362,11 @@ def cmd_correction(path, seeds, device):
             ct = scan_pipeline.ChunkedTracker(
                 cfg, chunk=cs.BENCH_CHUNK, fetch_every=cs.BENCH_FETCH,
                 loop=lc.LoopCloser(cfg, device=dev), device=dev)
-            cs._run_chunked(ct, frames)
+            run_eval.drive_chunked(ct, frames)
             m, rmse = ct.map, cs._ate_cw(ct.poses_cw(), gt)
             loops = ct.loop.loops_closed
         print(f"[correction] {path}, seed {seed}: loops {loops}, ATE "
-              f"{rmse:.5f} m, keyframe ATE {cs._kf_ate(m, gt):.4f} m at the "
+              f"{rmse:.5f} m, keyframe ATE {kf_ate(m, gt):.4f} m at the "
               f"end", flush=True)
 
 
@@ -371,12 +384,13 @@ def _kidnap_frames(dev):
 
 def cmd_kidnap(first, last, device):
     import chip_smoke as cs
+    from sgslam_tpu_torch.debug_stress import moved_frames
 
     dev = _setup(device)
     cfg, rendered = _kidnap_frames(dev)
     best = []
     for s in range(first, last + 1):
-        frames = rendered if s < 0 else cs.moved_frames(rendered, s)
+        frames = rendered if s < 0 else moved_frames(rendered, s)
         relocs, tail, errs = cs.kidnap_run(dev, cfg, frames)
         best.append(min(errs))
         print(f"[kidnap] seed {s}: relocalizations {relocs}, tail inliers "
@@ -503,6 +517,7 @@ def main() -> int:
     p.add_argument("path", choices=["system", "chunked"])
     p.add_argument("seeds")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--dump", default=None)
     p = sub.add_parser("kidnap")
     p.add_argument("first", type=int)
     p.add_argument("last", type=int)
@@ -526,7 +541,7 @@ def main() -> int:
                    a.draws)
     elif a.cmd == "correction":
         cmd_correction(a.path, [int(x) for x in a.seeds.split(",")],
-                       a.device)
+                       a.device, a.dump)
     elif a.cmd == "kidnap":
         cmd_kidnap(a.first, a.last, a.device)
     elif a.cmd == "reloc-dump":

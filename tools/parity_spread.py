@@ -3,6 +3,8 @@
 moves from it: the yardstick for the back-end's parity tolerances.
 
     python tools/parity_spread.py ba|pass|tracker|capacity|main|cull|loop|chunk|reloc|stereo|init|mono [--seeds 3]
+    python tools/parity_spread.py correction --dump DUMP.npz
+    python tools/parity_spread.py eval --sequence NAME --path system|chunked [--seeds 3]
 
 Runs on the CPU (JAX and the port's CPU path). Each mode runs the
 reference once as it is, then `--seeds` times with one input moved by one
@@ -68,6 +70,21 @@ and the port once, and prints the gaps:
             the images), initialization frame, keyframes, points and
             Sim(3)-aligned ATE, the port on its own features and on the
             reference's, with the initialization draws replayed.
+  correction  one loop correction's input as `tools/card_spread.py
+            correction --dump` wrote it on the card (the port's map just
+            before the correction, the pair, the Sim3, the loop edges):
+            the reference's `LoopCloser._correct` and the port's on the
+            CPU, each without and with the pinned global BA; the keyframe
+            ATE before, after the essential graph and fusion, and after the
+            global BA. The map is cut to its used slots (`next_kf`,
+            `next_pt`; the capacity follows): at the default 512 keyframes
+            and 32768 points the reference's global BA asks the CPU for a
+            74 GB buffer.
+  eval      one row of `tools/run_eval.py` (`--sequence`, `--path`)
+            through the reference's own `_run_system` or `_run_chunked` on
+            the CPU, as rendered and with its images moved by one ulp:
+            ATE, keyframes, loops (a loop closed at the default capacity
+            makes the reference's global BA ask for the 74 GB buffer).
 The loop, chunk, reloc, stereo, init and mono modes reuse the fixtures of
 the port's test files.
 """
@@ -743,12 +760,97 @@ def mode_mono(seeds):
         big), ref[1])
 
 
+def mode_correction(dump):
+    from sgslam_tpu.mapstate import mapstate as jms
+    from sgslam_tpu.slam import loop_closing as jlc
+    from sgslam_tpu_torch.debug_stress import kf_ate
+    from sgslam_tpu_torch.mapstate import mapstate as tms
+    from sgslam_tpu_torch.slam import loop_closing as tlc
+
+    with np.load(dump) as z:
+        arrays = {k[5:]: z[k] for k in z.files if k.startswith("map__")}
+        extra = {k[7:]: z[k] for k in z.files if k.startswith("extra__")}
+    nk, npt = int(arrays["next_kf"]), int(arrays["next_pt"])
+    used = {k: v[:nk] if k.startswith("kf_") else
+            v[:npt] if k.startswith("pt_") else v for k, v in arrays.items()}
+    kf_cur, kf_loop = int(extra["kf_cur"]), int(extra["kf_loop"])
+    gt = extra["gt"]
+    edges = list(zip(extra["edges_i"].tolist(), extra["edges_j"].tolist(),
+                     list(extra["edges_s"])))
+
+    def cfg_of(c, gba):
+        base = c.synthetic_config(
+            width=640, height=480,
+            tracker=c.TrackerConfig(max_frames_between_kf=6,
+                                    depth_threshold_factor=70.0))
+        return dataclasses.replace(
+            base, capacity=dataclasses.replace(
+                base.capacity, max_keyframes=nk, max_points=npt),
+            loop=dataclasses.replace(base.loop, run_global_ba=gba))
+
+    tm = convert.map_from_numpy(used, torch.device("cpu"))
+    print(f"{dump}: pair ({kf_cur}, {kf_loop}), {int(used['kf_valid'].sum())}"
+          f" keyframes in {nk} slots, {int(used['pt_valid'].sum())} points "
+          f"in {npt}; keyframe ATE before {kf_ate(tm, gt):.4f} m", flush=True)
+    jm = jms.MapState(**{k: jnp.asarray(v) for k, v in used.items()})
+    for name, run in (("reference", lambda gba: jlc.LoopCloser(
+            cfg_of(jcfg, gba))), ("port (CPU)", lambda gba: tlc.LoopCloser(
+                cfg_of(tcfg, gba), device="cpu"))):
+        after = []
+        for gba in (False, True):
+            lc = run(gba)
+            lc.loop_edges = list(edges)
+            if name == "reference":
+                out, _ = lc._correct(jm, kf_cur, kf_loop,
+                                     jnp.asarray(extra["S"]),
+                                     jms.covisibility(jm))
+                out = convert.map_from_numpy(_np_dict(out),
+                                             torch.device("cpu"))
+            else:
+                out, _ = lc._correct(tm, kf_cur, kf_loop,
+                                     torch.as_tensor(extra["S"]),
+                                     tms.covisibility(tm))
+            after.append(kf_ate(out, gt))
+        print(f"  {name}: keyframe ATE after the essential graph and the "
+              f"fusion {after[0]:.4f} m, after the global BA {after[1]:.4f} "
+              f"m", flush=True)
+
+
+def mode_eval(seeds, name, path):
+    import importlib.util
+    import json
+
+    spec_ = importlib.util.spec_from_file_location(
+        "reference_run_eval", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "run_eval.py"))
+    jre = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(jre)
+    spec = jre._sequences(False)[name]
+    cfg = jre._make_cfg(spec["distort"])
+    detector = (jdet.Detector2D(cfg.detector) if spec["kind"] == "dynamic"
+                else None)
+    seq, frames = jre._render(cfg, spec)
+    frames = [tuple(np.asarray(x) for x in f) for f in frames]
+    run = jre._run_system if path == "system" else jre._run_chunked
+    for label, fr in [("as rendered", frames)] + [
+            (f"moved by one ulp (seed {s})", _moved_frames(frames, s))
+            for s in range(seeds)]:
+        print(f"{name}, {path}, reference, {label}:",
+              json.dumps(run(cfg, spec, fr, seq, detector)), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=["ba", "pass", "tracker", "capacity",
                                      "main", "cull", "loop", "chunk",
-                                     "reloc", "stereo", "init", "mono"])
+                                     "reloc", "stereo", "init", "mono",
+                                     "correction", "eval"])
     ap.add_argument("--seeds", type=int, default=3)
+    ap.add_argument("--dump", default=None,
+                    help="correction: a file of card_spread.py --dump")
+    ap.add_argument("--sequence", default=None, help="eval: the row")
+    ap.add_argument("--path", default="system", choices=["system", "chunked"],
+                    help="eval: the path")
     args = ap.parse_args()
     torch.set_num_threads(1)
     if args.mode == "ba":
@@ -771,6 +873,10 @@ def main() -> int:
         mode_init(args.seeds)
     elif args.mode == "mono":
         mode_mono(args.seeds)
+    elif args.mode == "correction":
+        mode_correction(args.dump)
+    elif args.mode == "eval":
+        mode_eval(args.seeds, args.sequence, args.path)
     else:
         mode_sequence(args.seeds, args.mode == "capacity")
     return 0

@@ -55,7 +55,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
-from sgslam_tpu_torch import config  # noqa: E402
+from sgslam_tpu_torch import config, run_eval  # noqa: E402
 from sgslam_tpu_torch.io import checkpoint, synthetic  # noqa: E402
 from sgslam_tpu_torch.mapping.semantic_mapper import SemanticMapper  # noqa: E402
 from sgslam_tpu_torch.ops import hamming_cuda  # noqa: E402
@@ -122,10 +122,11 @@ def _print_stage(name, r, unit="frame"):
 
 
 def profile_system(args, dev) -> int:
-    cfg = chip_smoke.semantic_config()
+    cfg = run_eval._make_cfg(False)
     w, h = cfg.camera.width, cfg.camera.height
-    seq = chip_smoke.semantic_sequence(cfg, dev)     # the 150-frame walk
-    frames = [seq.frame(i) for i in range(args.frames)]
+    _, frames, _ = chip_smoke.eval_sequence(     # the 150-frame walk
+        "dynamic_640_3walkers_fastrot", cfg, dev)
+    frames = frames[:args.frames]
     rgb = chip_smoke._rgb
     s = System(cfg, device=dev)
     start = args.frames - args.window

@@ -144,6 +144,8 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    from sgslam_tpu_torch import run_eval
+    from sgslam_tpu_torch.debug_stress import moved_frames
     from sgslam_tpu_torch.io import synthetic
     from sgslam_tpu_torch.slam import scan_pipeline
     from sgslam_tpu_torch.slam.loop_closing import LoopCloser
@@ -153,7 +155,7 @@ def main() -> int:
     dev = torch.device(a.device)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = cs.kidnap_config() if a.small else cs.semantic_config()
+    cfg = cs.kidnap_config() if a.small else run_eval._make_cfg(False)
     n = a.frames or cs.STRESS_FRAMES
     seq = synthetic.SyntheticSequence(
         cfg.camera, n_frames=n, planes=synthetic.ROOM_CLOSED,
@@ -161,7 +163,7 @@ def main() -> int:
                                                 / cs.STRESS_FRAMES,
                                                 device=dev), device=dev)
     rendered = [seq.frame(i) for i in range(n)]
-    frames = rendered if a.seed < 0 else cs.moved_frames(rendered, a.seed)
+    frames = rendered if a.seed < 0 else moved_frames(rendered, a.seed)
     gt = seq.poses.cpu().numpy()
     Recorder = _recorder_class()
 
@@ -190,7 +192,7 @@ def main() -> int:
         loop.on_stage = lambda s: rec.mark(f"chunk {chunk[0]}: loop {s}")
         t0 = time.perf_counter()
         with rec:
-            cs._run_chunked(ct, frames)
+            run_eval.drive_chunked(ct, frames)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
