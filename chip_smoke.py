@@ -112,9 +112,12 @@ Phases, each of which fails the run if it fails:
   then the segment sum against its plain version (to the bit) at every
   call site and shape that phases 4-18 gave it (the first call of each is
   recorded), the lengths of its segments per phase and site, and its time
-  at phase 10's most launched shape and at the shape with the longest
-  segments; then print the `kernels` line, the card's name and power
-  limit, and last `{"ok": true, "device": ...}`.
+  (with the device time of each step of one call: sort, sum) at
+  phase 10's most launched shape, at the shape with the longest segments
+  and at the largest output (the global BA's); then print the whole-run
+  values that a change of the kernels must leave alone (phases 7, 11a, 13
+  and 18), the `kernels` line, the card's name and power limit, and last
+  `{"ok": true, "device": ...}`.
 Both kernels' launch counts are set to 0 just before each path of phases
 4-8, 10-16 and 18 (each run of 11 and 12, each path of 13 and 18, both
 calls of 15)
@@ -237,6 +240,11 @@ TOL_TRAIN_GRAD = 2e-2
 TOL_TRAIN_UPDATE = 2.5e-7
 
 
+# whole-run values that a change of the kernels must leave to every
+# printed digit (phases 7, 11a, 13 and 18), printed before the kernels line
+WHOLE_RUN = {}
+
+
 def _fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     return 1
@@ -286,6 +294,33 @@ def _graph_ms(fn, calls: int, replays: int = 50) -> float:
         for _ in range(calls):
             fn()
     return _event_ms(graph.replay, runs=replays, warmup=2) / calls
+
+
+def _device_ops(fn, reps: int = 5):
+    """[(name, calls, device us)] per call of `fn`: its device operations
+    (kernels, copies, memsets) from torch.profiler's CUDA activity, most
+    expensive first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count / reps, e.device_time_total / reps)
+            for e in prof.key_averages() if e.device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def _segment_step(op: str) -> str:
+    """Which step of the segment sum a device operation belongs to."""
+    if "sum_rows" in op or "segments" in op:
+        return "sum"
+    if any(w in op for w in ("histogram", "sort_pass", "Radix", "Memset")):
+        return "sort"
+    return "other"
 
 
 def _unpack_bits(x):
@@ -520,18 +555,125 @@ class SegmentInputs:
         return self.kernel(values, index, n, init)
 
 
+def segment_bound(values, index, n: int, init) -> tuple:
+    """(bound ms, bytes ms, adds ms) of one segment sum on the card: the
+    kept rows' values, every row's index and the output (and init) moved
+    once each over HBM, or one add per kept value at the FP32 rate,
+    whichever takes longer. A dropped row's value is never needed."""
+    cols = values[0].numel() if values.shape[0] else 1
+    kept = int(((index >= 0) & (index < n)).sum())
+    size = values.element_size()
+    nbytes = (kept * cols * size + index.shape[0] * index.element_size()
+              + n * cols * size * (2 if init is not None else 1))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = kept * cols / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
+def check_segment_sum(kernel, v, i, n: int, init, label: str) -> tuple:
+    """Launch the segment-sum `kernel` twice on these inputs, hold both
+    outputs to the plain version on the same inputs copied to the CPU (to
+    the bit) and to each other, print the result with the gap to the plain
+    version on the card (which sums short segments through atomics) and
+    fail if they differ. Returns (max abs error, longest segment)."""
+    import torch
+
+    from sgslam_tpu_torch.ops import segment
+
+    out = kernel(v, i, n, init)
+    again = kernel(v, i, n, init)
+    torch.cuda.synchronize()
+    ref = segment.segment_sum_reference(
+        v.cpu(), i.cpu(), n, None if init is None else init.cpu())
+    plain = segment.segment_sum_reference(v, i, n, init)
+    err = float((out.cpu() - ref).abs().max()) if ref.numel() else 0.0
+    keep = i[(i >= 0) & (i < n)]
+    seg_max = int(torch.bincount(keep.long()).max()) if keep.numel() else 0
+    same = torch.equal(out, again) and torch.equal(out.cpu(), ref)
+    print(f"[segment] {label}: values {tuple(v.shape)} -> {n} rows"
+          f"{' onto init' if init is not None else ''}, longest segment "
+          f"{seg_max}: repeat {torch.equal(out, again)}, equal to the "
+          f"plain version on the CPU {torch.equal(out.cpu(), ref)}, the "
+          f"plain version on the card within "
+          f"{float((out - plain).abs().max()) if out.numel() else 0:.3g}")
+    if not same:
+        raise AssertionError(f"segment sum differs at {label}")
+    return err, seg_max
+
+
+def time_segment_sum(dev, kernel, v, i, n: int, init, label: str) -> dict:
+    """Time one call of the segment-sum `kernel` on these inputs (CUDA-graph
+    replay) beside its bound, its plain version and the library calls
+    (`index_add_`: atomics; `index_put_` with accumulate: a sort), print
+    it with the device time of each step of one eager call (torch.profiler)
+    and return the kernels line's timing fields."""
+    import torch
+
+    from sgslam_tpu_torch.ops import segment
+
+    # the library calls, the dropped rows sent to a spare row
+    spare = torch.where((i >= 0) & (i < n), i, n).long()
+    base = torch.zeros((n + 1,) + tuple(v.shape[1:]), dtype=v.dtype,
+                       device=dev)
+    if init is not None:
+        base[:n] = init
+    lib_out = base.clone()
+
+    def index_add():
+        lib_out.copy_(base).index_add_(0, spare, v)
+
+    def index_put():
+        lib_out.copy_(base).index_put_((spare,), v, accumulate=True)
+
+    put = [base.clone().index_put_((spare,), v, accumulate=True)
+           for _ in range(3)]
+    put_repeats = all(torch.equal(put[0], p) for p in put[1:])
+    del put
+    ms = _graph_ms(lambda: kernel(v, i, n, init), calls=20)
+    ops = _device_ops(lambda: kernel(v, i, n, init))
+    plain_ms = _event_ms(
+        lambda: segment.segment_sum_reference(v, i, n, init), runs=20)
+    library_ms = _graph_ms(index_add, calls=20)
+    put_ms = _event_ms(index_put, runs=3, warmup=1)   # slow: eager
+    del base, lib_out
+    bound_ms, bytes_ms, ops_ms = segment_bound(v, i, n, init)
+    kept = int(((i >= 0) & (i < n)).sum())
+    print(f"[segment] time at {label}, values {tuple(v.shape)} "
+          f"{str(v.dtype)[6:]}, index {str(i.dtype)[6:]}, {kept} of "
+          f"{v.shape[0]} rows kept -> {n} rows"
+          f"{' onto init' if init is not None else ''}: ms={ms:.5f} (one "
+          f"wrapper call: sort, sum; CUDA-graph replay) "
+          f"bound_ms={bound_ms:.5f} (bytes {bytes_ms:.5f}, adds "
+          f"{ops_ms:.5f}) plain_ms={plain_ms:.5f} (eager; its masks "
+          f"read back) library_ms(index_add_)={library_ms:.5f} "
+          f"index_put_(accumulate=True)={put_ms:.5f} (three calls "
+          f"identical: {put_repeats})")
+    steps = {}
+    for op, n_ops, us in ops:
+        step = _segment_step(op)
+        steps[step] = steps.get(step, 0.0) + us / 1e3
+    print(f"[segment]   device ms per step of one eager call "
+          f"(torch.profiler): "
+          + ", ".join(f"{st} {x:.5f}" for st, x in steps.items())
+          + f"; total {sum(steps.values()):.5f}, beside bound_ms "
+          f"{bound_ms:.5f} and index_add_ {library_ms:.5f}")
+    for op, n_ops, us in ops:
+        print(f"[segment]     {us / 1e3:.5f} ms x{n_ops:g} "
+              f"{_segment_step(op)}: {op[:100]}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
 def phase_segment(dev, rec: SegmentInputs, launches: int):
     """The segment sum against its plain version at every site and shape
     the run gave it (to the bit, on the same inputs copied to the CPU; the
     plain version on the card sums short segments through atomics, so its
     gap is printed), the segments' lengths per phase and site, and its time,
-    bound, plain and library times at phase 10's most launched shape and at
-    the shape with the longest segments. Returns its entry of the kernels
-    line."""
-    import torch
-
-    from sgslam_tpu_torch.ops import segment
-
+    bound, plain and library times, with the device time of each step of
+    one call (sort, sum), at phase 10's most launched shape, at the
+    shape with the longest segments and at the one with the largest output
+    (the global BA's). Returns its entry of the kernels line."""
     k = rec.kernel
     print("[segment] segment lengths per phase and call site (calls; "
           "longest; segments of 1, 2-3, 4-7, ... rows):")
@@ -543,88 +685,31 @@ def phase_segment(dev, rec: SegmentInputs, launches: int):
               f"calls; longest {int(longest)}; {h}")
     max_err, longest_key, longest_len = 0.0, None, -1
     for key, (phase, v, i, n, init) in rec.inputs.items():
-        out = k(v, i, n, init)
-        again = k(v, i, n, init)
-        torch.cuda.synchronize()
-        ref = segment.segment_sum_reference(
-            v.cpu(), i.cpu(), n, None if init is None else init.cpu())
-        plain = segment.segment_sum_reference(v, i, n, init)
-        err = float((out.cpu() - ref).abs().max()) if ref.numel() else 0.0
+        err, seg_max = check_segment_sum(
+            k, v, i, n, init, f"{key[0]} (first in phase {phase})")
         max_err = max(max_err, err)
-        keep = i[(i >= 0) & (i < n)]
-        seg_max = (int(torch.bincount(keep.long()).max()) if keep.numel()
-                   else 0)
         if seg_max > longest_len:
             longest_key, longest_len = key, seg_max
-        print(f"[segment] {key[0]} (first in phase {phase}): values "
-              f"{tuple(v.shape)} -> {n} rows"
-              f"{' onto init' if init is not None else ''}, longest segment "
-              f"{seg_max}: repeat {torch.equal(out, again)}, equal to the "
-              f"plain version on the CPU {torch.equal(out.cpu(), ref)}, the "
-              f"plain version on the card within "
-              f"{float((out - plain).abs().max()) if out.numel() else 0:.3g}")
-        if not (torch.equal(out, again) and torch.equal(out.cpu(), ref)):
-            raise AssertionError(f"segment sum differs at {key}")
-
-    def timing(key, label):
-        _, v, i, n, init = rec.inputs[key]
-        rows = v.shape[0]
-        cols = v[0].numel() if rows else 1
-        # the library calls: index_add_ (atomics) and index_put_ with
-        # accumulate (sorts), the dropped rows sent to a spare row
-        spare = torch.where((i >= 0) & (i < n), i, n).long()
-        base = torch.zeros((n + 1,) + tuple(v.shape[1:]), dtype=v.dtype,
-                           device=dev)
-        if init is not None:
-            base[:n] = init
-        lib_out = base.clone()
-
-        def index_add():
-            lib_out.copy_(base).index_add_(0, spare, v)
-
-        def index_put():
-            lib_out.copy_(base).index_put_((spare,), v, accumulate=True)
-
-        put = [base.clone().index_put_((spare,), v, accumulate=True)
-               for _ in range(3)]
-        put_repeats = all(torch.equal(put[0], p) for p in put[1:])
-        ms = _graph_ms(lambda: k(v, i, n, init), calls=20)
-        plain_ms = _event_ms(
-            lambda: segment.segment_sum_reference(v, i, n, init), runs=20)
-        library_ms = _graph_ms(index_add, calls=20)
-        put_ms = _event_ms(index_put, runs=3, warmup=1)   # slow: eager
-        kept = int(((i >= 0) & (i < n)).sum())
-        nbytes = (rows * cols * v.element_size() + rows * i.element_size()
-                  + n * cols * v.element_size() * (2 if init is not None
-                                                   else 1))
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = kept * cols / FP32_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        print(f"[segment] time at {label}, {key[0]}, values "
-              f"{tuple(v.shape)} -> {n} rows: ms={ms:.5f} (the wrapper: "
-              f"stable sort, output, kernels; CUDA-graph replay) "
-              f"bound_ms={bound_ms:.5f} (bytes {bytes_ms:.5f}, adds "
-              f"{ops_ms:.5f}) plain_ms={plain_ms:.5f} (eager; its masks "
-              f"read back) library_ms(index_add_)={library_ms:.5f} "
-              f"index_put_(accumulate=True)={put_ms:.5f} (three calls "
-              f"identical: {put_repeats})")
-        return ms, plain_ms, bound_ms, ops_ms >= bytes_ms, library_ms
 
     shapes = [(phase, key, c) for (phase, key), c in rec.calls.items()
               if isinstance(key, tuple)]
     bench = [x for x in shapes if x[0] == "10"] or shapes
     phase, top, calls = max(bench, key=lambda x: x[2])
-    ms, plain_ms, bound_ms, by_ops, library_ms = timing(
-        top, f"phase {phase}'s most launched shape ({calls} calls)")
+
+    def timing(key, label):
+        return time_segment_sum(dev, k, *rec.inputs[key][1:],
+                                f"{label}, {key[0]}")
+
+    t = timing(top, f"phase {phase}'s most launched shape ({calls} calls)")
     if longest_key is not None and longest_key != top:
         timing(longest_key, f"the longest segments ({longest_len} rows)")
+    widest = max(rec.inputs, key=lambda key: key[2] * int(np.prod(key[1][1:])))
+    if widest not in (top, longest_key):
+        timing(widest, "the largest output")
     return {"name": "segment_sum", "route": "cuda",
             "source": "sgslam_tpu_torch/csrc/segment_sum.cu",
             "replaces": "sgslam_tpu/optim/local_ba.py:186",
-            "launches": launches, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if by_ops else "bytes",
-            "library_ms": library_ms}
+            "launches": launches, "max_abs_err": max_err, **t}
 
 
 def _zero_counts():
@@ -998,6 +1083,7 @@ def phase_semantic_system(dev, kernels, cfg=None, n_frames=SEM_FRAMES):
     loop_ms = [per_frame[i]["loop_closing"] for i in kf_frames]
     total = [sum(f.values()) for f in per_frame]
     pass_ms, stages = backend.split()
+    WHOLE_RUN["7 ATE m"] = round(rmse, 5)
     print(f"[semantic] {n_frames} frames {cfg.camera.width}x"
           f"{cfg.camera.height}, 3 walkers, in {run_s:.2f} s: state "
           f"{s.state}, {s.tracker.n_kf} keyframes, {len(backend.passes)} "
@@ -1333,6 +1419,8 @@ def phase_loop_closing(dev, cfg=None, n_frames=None, loops=None,
         wall = time.perf_counter() - t0
         _segment_count(f"phase 11a, System, {label}")
         rmse = _ate(s.tracker, gt)
+        WHOLE_RUN[f"11a System {label}: ATE m, loops"] = [
+            round(rmse, 5), len(s.loop.loops_closed)]
         report(f"System (loop closing on), {label}", s.loop, timer, wall,
                rmse, f"state {s.state}, {s.tracker.n_kf} keyframes, K1 "
                f"launches {hc.hamming_kernel.launches}, peak memory "
@@ -1372,6 +1460,8 @@ def phase_loop_closing(dev, cfg=None, n_frames=None, loops=None,
         wall = time.perf_counter() - t0
         _segment_count(f"phase 11a, ChunkedTracker, {label}")
         rmse = _ate_cw(ct.poses_cw(), gt)
+        WHOLE_RUN[f"11a chunked {label}: ATE m, loops"] = [
+            round(rmse, 5), ct.loops_closed]
         report(f"ChunkedTracker(chunk=4, fetch_every=6, loop), {label}",
                loop, timer, wall, rmse, f"{ct.n_kf} keyframes, "
                f"relocalizations {ct.relocs}, lost frames "
@@ -1683,6 +1773,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     launches = hc.hamming_kernel.launches
     _segment_count("phase 13a, System.track_stereo")
     rmse = _ate(s.tracker, gt)
+    WHOLE_RUN["13 stereo System ATE m"] = round(rmse, 5)
     groups = timer.groups()
     med = {n: float(np.median([g[n] for i, g in enumerate(groups)
                                if i not in kf_frames]))
@@ -1728,6 +1819,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     launches = hc.hamming_kernel.launches
     _segment_count("phase 13b, ChunkedStereoTracker")
     rmse = _ate_cw(ct.poses_cw(), gt)
+    WHOLE_RUN["13 stereo chunked ATE m"] = round(rmse, 5)
     stages = _chunk_stage_split(chunk_timer)
     print(f"[stereo] ChunkedStereoTracker(chunk={BENCH_CHUNK}, fetch_every="
           f"{BENCH_FETCH}, loop) in {run_s:.2f} s: {ct.n_kf} keyframes, "
@@ -2175,6 +2267,9 @@ def phase_eval_suite(dev, name=EVAL_SEQUENCE):
         wall = time.perf_counter() - t0
     row = res["sequences"][name]
     sy, ch = row["system"], row["chunked"]
+    WHOLE_RUN["18 ATE m (System, chunked)"] = [round(sy["ate"], 5),
+                                               round(ch["ate"], 5)]
+    WHOLE_RUN["18 (path, K1, S launches)"] = counts
     print(f"[eval] run_eval.main({argv}) in {wall:.1f} s on "
           f"{res['device']['name']} ({res['device']['power_limit']}): "
           f"{row['n_frames']} frames, distortion {row['distortion']}; "
@@ -2304,6 +2399,7 @@ def main() -> int:
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
+    print(f"[whole-run] {json.dumps(WHOLE_RUN)}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(_smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

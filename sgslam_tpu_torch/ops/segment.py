@@ -8,18 +8,19 @@ drop them.
 Why: a float `index_add_` or `index_put_(accumulate=True)` on a CUDA tensor
 sums through atomics, in an order that changes from launch to launch, so a
 whole run on the card did not repeat itself; XLA's scatters (the
-reference's) do. On the card the wrapper sorts the indices with a stable
-sort and launches `csrc/segment_sum.cu`; on the CPU the plain version,
-`segment_sum_reference`, adds in the kernel's order op for op, so the
-kernel, its plain version and any two launches agree to the bit. The
-order: a segment of at most `LONG` rows (every segment of the BA and the
-pose graph) is added row after row onto `init`, as `index_add_` adds it; a
-longer one (the occupancy voxels that every ray samples, dense voxels, a
-camera's observations) as `BLOCK` strided partial sums from zero, halved in
-a fixed tree and then added to `init`, so that the card sums it in
-parallel. A wrapper takes the plain version only for a tensor on the CPU,
-and for a CUDA tensor launches the kernel or raises.
-`segment_kernel.launches` counts kernel launches.
+reference's) do. On the card the wrapper launches `csrc/segment_sum.cu`,
+which sorts the kept rows by index (a stable radix sort over the
+`key_bits(n)` bits the indices have) and writes each output row once; on
+the CPU the plain version, `segment_sum_reference`, adds in the kernel's
+order op for op, so the kernel, its plain version and any two launches
+agree to the bit. The order: a segment of at most `LONG` rows (every
+segment of the BA and the pose graph) is added row after row onto `init`,
+as `index_add_` adds it; a longer one (the occupancy voxels that every ray
+samples, dense voxels, a camera's observations) as `BLOCK` strided
+partial sums from zero, halved in a fixed tree and then added to `init`,
+so that the card sums it in parallel. A wrapper takes the plain version
+only for a tensor on the CPU, and for a CUDA tensor launches the kernel or
+raises. `segment_kernel.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,12 +34,12 @@ from .hamming_cuda import CSRC, build_library
 
 _SOURCE = CSRC / "segment_sum.cu"
 _FLOATS = {torch.float32: "f32", torch.float64: "f64"}
-_MAX_BLOCKS = 2 ** 31 - 1
 LONG = 256      # a longer segment is summed by a block (the kernel's kLong)
 BLOCK = 256     # the partial sums of such a segment (the kernel's kBlock)
 
 
-def _prepare(values, index, n, init):
+def _check(values, index, n, init):
+    """The output's shape, after checking the arguments."""
     if values.dim() == 0 or index.dim() != 1 or \
             index.shape[0] != values.shape[0]:
         raise ValueError(f"values {tuple(values.shape)} and index "
@@ -46,12 +47,24 @@ def _prepare(values, index, n, init):
     if index.dtype.is_floating_point or index.dtype == torch.bool:
         raise TypeError(f"index must be an integer tensor, not {index.dtype}")
     shape = (n,) + tuple(values.shape[1:])
-    if init is None:
-        return torch.zeros(shape, dtype=values.dtype, device=values.device)
-    if tuple(init.shape) != shape or init.dtype != values.dtype:
+    if init is not None and (tuple(init.shape) != shape
+                             or init.dtype != values.dtype):
         raise ValueError(f"init {tuple(init.shape)} {init.dtype} must be "
                          f"{shape} {values.dtype}")
+    return shape
+
+
+def _prepare(values, index, n, init):
+    shape = _check(values, index, n, init)
+    if init is None:
+        return torch.zeros(shape, dtype=values.dtype, device=values.device)
     return init.clone(memory_format=torch.contiguous_format)
+
+
+def key_bits(n: int) -> int:
+    """Bits of the kernel's sort keys, the kept indices in [0, n): at least
+    1, else ceil(log2(n))."""
+    return max(1, (int(n) - 1).bit_length())
 
 
 def segment_sum_reference(values, index, n: int, init=None):
@@ -98,6 +111,7 @@ class SegmentSumKernel:
 
     def __init__(self):
         self.launches = 0
+        self._scratch = None
         self._fns = None
         self._lock = threading.Lock()
 
@@ -109,15 +123,22 @@ class SegmentSumKernel:
                         lib.sgslam_segment_sum_block()) != (LONG, BLOCK):
                     raise RuntimeError(f"{_SOURCE.name} sums segments in "
                                        "another order than its plain version")
+                scratch = lib.sgslam_segment_sum_scratch
+                scratch.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                    ctypes.c_int, ctypes.c_int64,
+                                    ctypes.c_int]
+                scratch.restype = ctypes.c_int64
                 fns = {}
                 for dt, tag in _FLOATS.items():
                     fn = getattr(lib, f"sgslam_segment_sum_{tag}")
-                    fn.argtypes = [ctypes.c_void_p] * 4 + [
-                        ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-                        ctypes.c_void_p, ctypes.c_void_p]
+                    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+                        ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                        ctypes.c_void_p]
                     fn.restype = ctypes.c_int
                     fns[dt] = fn
-                self._fns = fns
+                self._scratch, self._fns = scratch, fns
         return self._fns
 
     def __call__(self, values, index, n: int, init=None):
@@ -130,23 +151,32 @@ class SegmentSumKernel:
         if values.dtype not in _FLOATS:
             raise TypeError(f"values must be float32 or float64, not "
                             f"{values.dtype}")
-        out = _prepare(values, index, n, init)
+        shape = _check(values, index, n, init)
         rows = values.shape[0]
         cols = values[0].numel() if rows else 1
         if rows == 0 or cols == 0 or n == 0:
-            return out
-        if -(-rows * cols // 256) > _MAX_BLOCKS or cols > 65535:
-            raise ValueError(f"{rows} x {cols} values exceed the grid")
+            return _prepare(values, index, n, init)
         vals = values.reshape(rows, cols).contiguous()
-        sorted_idx, order = torch.sort(index.to(torch.int64), stable=True)
-        # a counter, then the heads of the segments of more than LONG rows
-        work = torch.empty(1 + rows // (LONG + 1), dtype=torch.int64,
-                           device=values.device)
+        if index.dtype not in (torch.int32, torch.int64):
+            index = index.to(torch.int64)
+        idx = index.contiguous()
+        start = None if init is None else init.contiguous()
         fn = self.load()[values.dtype]
+        dev = values.device.index
+        bits = key_bits(n)
+        nbytes = self._scratch(rows, cols, vals.element_size(), n, bits)
+        if nbytes < 0:
+            raise ValueError(f"the segment-sum kernel takes fewer than 2^30 "
+                             f"rows of at most 65535 columns onto fewer than "
+                             f"2^31 rows, not {rows} x {cols} onto {n}")
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=values.device)
+        out = torch.empty(shape, dtype=values.dtype, device=values.device)
         with torch.cuda.device(values.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = fn(vals.data_ptr(), order.data_ptr(), sorted_idx.data_ptr(),
-                     out.data_ptr(), rows, cols, n, work.data_ptr(), stream)
+            err = fn(dev, vals.data_ptr(), idx.data_ptr(), idx.element_size(),
+                     None if start is None else start.data_ptr(),
+                     out.data_ptr(), rows, cols, n, bits, scratch.data_ptr(),
+                     nbytes, stream)
         if err != 0:
             raise RuntimeError(f"segment-sum kernel launch failed: CUDA "
                                f"error {err}")

@@ -14,6 +14,7 @@ relocalization computes.
     python tools/card_spread.py reloc-replay OUT.pt
     python tools/card_spread.py mono-draws build/jax_mono_draws.npz  # JAX
     python tools/card_spread.py mono [--device D] [--draws FILE]
+    python tools/card_spread.py eval SEQUENCE [--device D] -- -1,0,1,2
 
 The images move as tools/parity_spread.py moves the reference's (seed s:
 frame i's gray by signs from default_rng(2000 s + i), its depth by
@@ -52,7 +53,14 @@ default_rng(3000 s + i); s = -1 leaves them as rendered).
                 replayed from `--draws` (the card's own generator without
                 it): each attempt's outcome, the frame the run initializes
                 at, and again on the CPU each attempt with the same
-                matches and draws.
+                matches and draws;
+  eval          one sequence of the accuracy suite (`run_eval`'s name, for
+                example dynamic_640_walkers_circuit) through run_eval's own
+                System and chunked paths (`_run_system`, `_run_chunked`, the
+                shipped detector), as rendered (seed -1) and moved by one
+                ulp (`debug_stress.moved_frames`): one JSON line per run
+                with its ATE, loops closed and keyframes, and the device's
+                name and power limit.
 """
 
 from __future__ import annotations
@@ -502,6 +510,31 @@ def cmd_reloc_replay(dump):
               f"{gap(T):.4f} m")
 
 
+def cmd_eval(name, seeds, device):
+    from sgslam_tpu_torch import run_eval
+    from sgslam_tpu_torch.debug_stress import moved_frames
+    from sgslam_tpu_torch.models.detector import Detector2D
+
+    dev = _setup(device)
+    spec = run_eval._sequences(False, dev)[name]
+    cfg = run_eval._make_cfg(spec["distort"])
+    detector = (Detector2D(cfg.detector, device=dev)
+                if spec["kind"] == "dynamic" else None)
+    seq, rendered = run_eval._render(cfg, spec, dev)
+    info = run_eval.device_info(dev)
+    for s in seeds:
+        frames = rendered if s < 0 else moved_frames(rendered, s)
+        for path, run in (("system", run_eval._run_system),
+                          ("chunked", run_eval._run_chunked)):
+            r = run(cfg, spec, frames, seq, detector, dev)
+            print(json.dumps({
+                "sequence": name, "seed": s, "path": path,
+                "ate": round(r["ate"], 5), "loops_closed": r["loops_closed"],
+                "keyframes": r["keyframes"], "wall_s": r["wall_s"],
+                "device": info["name"], "power_limit": info["power_limit"]}),
+                flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -533,6 +566,11 @@ def main() -> int:
     p = sub.add_parser("mono")
     p.add_argument("--device", default="cuda")
     p.add_argument("--draws", default=None)
+    p = sub.add_parser("eval")
+    p.add_argument("sequence")
+    p.add_argument("seeds", help="comma-separated; -1 is the rendered "
+                   "sequence (put -- before a list that starts with it)")
+    p.add_argument("--device", default="cuda")
     a = ap.parse_args()
     if a.cmd == "draws":
         cmd_draws(a.out)
@@ -550,6 +588,8 @@ def main() -> int:
         cmd_mono_draws(a.out)
     elif a.cmd == "mono":
         cmd_mono(a.device, a.draws)
+    elif a.cmd == "eval":
+        cmd_eval(a.sequence, [int(x) for x in a.seeds.split(",")], a.device)
     else:
         cmd_reloc_replay(a.dump)
     return 0
