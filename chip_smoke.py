@@ -45,14 +45,15 @@ Phases, each of which fails the run if it fails:
   9. card against the CPU: the detector on five phase-7 frames (TF32 off),
      the frame-to-frame match tables, and `reject_dynamic_matched` with the
      same RANSAC samples on both devices;
- 10. bench.py's path at full width, this slice's main path:
-     `ChunkedSemanticTracker(cfg, Detector2D, chunk=4, fetch_every=6,
-     loop=LoopCloser(cfg))` on bench.py's schedule (6 bootstrap frames of
-     the 640x480 walking-person scene, 12 warm chunks + flush untimed, 24
-     timed chunks + flush); checks state, inliers (bench.py's assert), ATE
-     and K1 launches, prints frames/s as bench.py computes it and the
-     per-chunk stage times and per-keyframe loop-closing times (CUDA
-     events);
+ 10. bench.py's path at full width through the port's bench,
+     `sgslam_tpu_torch.bench.run`: `ChunkedSemanticTracker(cfg,
+     Detector2D, chunk=4, fetch_every=6, loop=LoopCloser(cfg))` on
+     bench.py's schedule (6 bootstrap frames of the 640x480 walking-person
+     scene, 12 warm chunks + flush untimed, 24 timed chunks + flush);
+     checks state, inliers (bench.py's assert), ATE and K1 launches,
+     prints the bench's JSON line (on a `[bench-path]` line), frames/s as
+     bench.py computes it and the per-chunk stage times and per-keyframe
+     loop-closing times (CUDA events);
  11. loop closing at full width: (a) run_eval's
      `static_640_circuit_2laps_stress` sequence (240 frames at 640x480,
      2.15 laps of the closed room), as rendered and with its images moved
@@ -109,8 +110,15 @@ Phases, each of which fails the run if it fails:
      640x480 on the TUM1-distorted camera, System and chunked paths):
      both ATEs under the row's 0.03 m gate, `parity_ok`, and K1 and the
      segment sum launched on each path;
+ 19. the measurement harnesses at reduced depth, each through its `main`
+     on the card (`profile_chunk`, `bench_sweep`, `bench_kernels`,
+     `bench_dist_ba` and `bench_dist_ba_realmap` at world size 1 on NCCL)
+     and `entry()` once; their outputs well formed (keys, finite positive
+     times, the card's name and power limit, the realmap cost falling) and
+     K1 and the segment sum launched where they run (`phase_harnesses`
+     lists the cuts);
   then the segment sum against its plain version (to the bit) at every
-  call site and shape that phases 4-18 gave it (the first call of each is
+  call site and shape that phases 4-19 gave it (the first call of each is
   recorded), the lengths of its segments per phase and site, and its time
   (with the device time of each step of one call: sort, sum) at
   phase 10's most launched shape, at the shape with the longest segments
@@ -119,8 +127,8 @@ Phases, each of which fails the run if it fails:
   and 18), the `kernels` line, the card's name and power limit, and last
   `{"ok": true, "device": ...}`.
 Both kernels' launch counts are set to 0 just before each path of phases
-4-8, 10-16 and 18 (each run of 11 and 12, each path of 13 and 18, both
-calls of 15)
+4-8, 10-16, 18 and 19 (each run of 11 and 12, each path of 13 and 18, both
+calls of 15, each harness of 19 that runs in this process)
 and read just after; each path that runs the BA, the pose graph or the
 mapper must have launched the segment sum. The `kernels` line carries
 phase 10's counts (the timed window of bench.py's schedule). Phase 7's
@@ -137,21 +145,11 @@ import contextlib
 import ctypes
 import json
 import os
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-
-# H100 SXM published HBM3 bandwidth and float32 rate outside the tensor
-# cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# Documented popc throughput of compute capability 9.0, per clock per SM.
-# K1's bound uses the higher of this rate (at the card's maximum SM clock)
-# and the one phase 3 measures, so that the bound is never flattered.
-POPC_PER_CLK_SM = 16
 
 N_FRAMES = 60
 ATE_GATE_M = 0.05
@@ -172,9 +170,9 @@ LIVE_FRAMES = 120
 LIVE_ATE_GATE_M = 0.08
 
 SEM_FRAMES = 150
-BENCH_CHUNK, BENCH_FETCH, BENCH_BOOT = 4, 6, 6       # bench.py's schedule
-BENCH_WARM, BENCH_TIMED = 2 * BENCH_FETCH, 24
-BENCH_MIN_INLIERS = 30                               # bench.py's assert
+# the chunked runners' chunk and drain interval in phases 11-13: those of
+# bench.py's schedule (`sgslam_tpu_torch.bench.CHUNK`, `FETCH_EVERY`)
+BENCH_CHUNK, BENCH_FETCH = 4, 6
 STRESS_FRAMES = 240              # run_eval.py's 2-lap stress circuit
 STRESS_ATE_GATE_M = 0.05         # run_eval.py's stress gate
 # phase 11a's other inputs: the stress circuit moved by one ulp; a moved
@@ -238,6 +236,16 @@ TRAIN_GRAD_READINGS = [(1, 3), (2, 6)]     # (seed, batch) beside (0, 0)
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = 2e-2
 TOL_TRAIN_UPDATE = 2.5e-7
+# phase 19: the measurement harnesses at reduced depth (cuts listed in
+# `phase_harnesses`); the realmap bench keeps its default 4 LM iterations:
+# the eval map's first three steps are rejected at the default damping, so
+# fewer leave the cost where it was
+HARNESS_PROFILE_REPS = 2
+HARNESS_SWEEP_FRAMES = 30        # 6 bootstrap frames + 6 chunks of 4
+HARNESS_KERNEL_REPS, HARNESS_KERNEL_K = 2, 2
+HARNESS_REALMAP_ITERS = 4
+HARNESS_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
 
 
 # whole-run values that a change of the kernels must leave to every
@@ -250,70 +258,6 @@ def _fail(msg: str) -> int:
     return 1
 
 
-def _smi(query: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader",
-         "--id=0"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip()
-
-
-def _event_ms(fn, runs: int, warmup: int = 5) -> float:
-    """Median time of one call between CUDA events: the device time of
-    what `fn` launches, plus the host time of the call while the card
-    waits for it."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def _graph_ms(fn, calls: int, replays: int = 50) -> float:
-    """Device time of one call of `fn`: `calls` calls captured in a CUDA
-    graph, replayed back to back between CUDA events (median over
-    `replays`), so that no host time is counted."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return _event_ms(graph.replay, runs=replays, warmup=2) / calls
-
-
-def _device_ops(fn, reps: int = 5):
-    """[(name, calls, device us)] per call of `fn`: its device operations
-    (kernels, copies, memsets) from torch.profiler's CUDA activity, most
-    expensive first."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.count / reps, e.device_time_total / reps)
-            for e in prof.key_averages() if e.device_time_total > 0]
-    return sorted(rows, key=lambda r: -r[2])
-
-
 def _segment_step(op: str) -> str:
     """Which step of the segment sum a device operation belongs to."""
     if "sum_rows" in op or "segments" in op:
@@ -321,16 +265,6 @@ def _segment_step(op: str) -> str:
     if any(w in op for w in ("histogram", "sort_pass", "Radix", "Memset")):
         return "sort"
     return "other"
-
-
-def _unpack_bits(x):
-    """[K,8] int32 words -> [K,256] float32 {0,1} bits (for the cdist
-    yardstick only)."""
-    import torch
-
-    shifts = torch.arange(32, device=x.device, dtype=torch.int64)
-    bits = (x.to(torch.int64)[:, :, None] >> shifts) & 1
-    return bits.reshape(x.shape[0], 256).to(torch.float32)
 
 
 def phase_build():
@@ -416,8 +350,12 @@ def _popc_expected(tid, iters, chains):
 
 def phase_popc_rate(dev, popc) -> float:
     """The card's popc rate (popc per second) for K1's bound: the higher of
-    the microbenchmark's (csrc/popc_bench.cu) and the documented one."""
+    the microbenchmark's (csrc/popc_bench.cu) and the documented one (at
+    the card's maximum SM clock), so that the bound is never flattered."""
     import torch
+
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.utils import timing
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     threads = popc.sgslam_popc_bench_threads()
@@ -438,17 +376,17 @@ def phase_popc_rate(dev, popc) -> float:
     want = [_popc_expected(t, 64, chains) for t in range(4)]
     if list(got) != want:
         raise AssertionError(f"popc benchmark computed {got}, not {want}")
-    ms = _event_ms(launch, runs=20)
-    clock_mhz = float(_smi("clocks.sm").split()[0])
-    max_mhz = float(_smi("clocks.max.sm").split()[0])
+    ms = timing.event_ms(launch, runs=20)
+    clock_mhz = float(timing.smi("clocks.sm").split()[0])
+    max_mhz = float(timing.smi("clocks.max.sm").split()[0])
     rate = blocks * threads * iters * chains / (ms * 1e-3)
-    documented = POPC_PER_CLK_SM * sms * max_mhz * 1e6
+    documented = hc.documented_popc_rate(dev)
     print(f"[popc] {blocks} blocks x {threads} threads x {iters} x {chains} "
           f"popc in {ms:.4f} ms: {rate:.4e} popc/s = "
           f"{rate / (sms * max_mhz * 1e6):.2f} per clock per SM at the "
           f"maximum SM clock {max_mhz:.0f} MHz ({sms} SMs; SM clock read "
           f"after the run {clock_mhz:.0f} MHz); documented "
-          f"{POPC_PER_CLK_SM}/clk/SM: {documented:.4e} popc/s; the bound "
+          f"{hc.POPC_PER_CLK_SM}/clk/SM: {documented:.4e} popc/s; the bound "
           f"uses {max(rate, documented):.4e} popc/s")
     return max(rate, documented)
 
@@ -458,31 +396,30 @@ def phase_k1_time(dev, rng, popc_rate: float, max_err: int, shapes):
     import torch
 
     from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.utils import timing
 
     for n, m in shapes:
         if (n, m) == (4096, 1024):
             continue
         a, b = _descs(rng, dev, n), _descs(rng, dev, m)
-        ms = _graph_ms(lambda: hc.hamming_kernel(a, b), calls=20)
-        bound = max(((n + m) * 32 + n * m * 4) / HBM_BYTES_PER_S,
-                    n * m * 8 / popc_rate) * 1e3
+        ms = timing.graph_ms(lambda: hc.hamming_kernel(a, b), calls=20)
+        bound = hc.hamming_bound(n, m, popc_rate)[0]
         print(f"[time] K1 {n}x{m}: kernel_ms={ms:.5f} bound_ms={bound:.5f}")
 
     # the tracking shape: 4096 local points x 1024 keypoints
     n, m = 4096, 1024
     a, b = _descs(rng, dev, n), _descs(rng, dev, m)
-    call_ms = _event_ms(lambda: hc.hamming_kernel(a, b), runs=100)
-    kernel_ms = _graph_ms(lambda: hc.hamming_kernel(a, b), calls=50)
-    plain_ms = _graph_ms(lambda: hc.hamming_matrix_reference(a, b), calls=5)
-    ba, bb = _unpack_bits(a), _unpack_bits(b)
+    call_ms = timing.event_ms(lambda: hc.hamming_kernel(a, b), runs=100)
+    kernel_ms = timing.graph_ms(lambda: hc.hamming_kernel(a, b), calls=50)
+    plain_ms = timing.graph_ms(lambda: hc.hamming_matrix_reference(a, b),
+                               calls=5)
+    ba, bb = hc.unpack_bits(a), hc.unpack_bits(b)
     lib = torch.cdist(ba, bb, p=0)
     if not torch.equal(lib.round().to(torch.int32),
                        hc.hamming_matrix_reference(a, b)):
         raise AssertionError("cdist yardstick disagrees with K1's function")
-    library_ms = _graph_ms(lambda: torch.cdist(ba, bb, p=0), calls=5)
-    bytes_ms = ((n + m) * 8 * 4 + n * m * 4) / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * m * 8 / popc_rate * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    library_ms = timing.graph_ms(lambda: torch.cdist(ba, bb, p=0), calls=5)
+    bound_ms, bytes_ms, ops_ms = hc.hamming_bound(n, m, popc_rate)
     print(f"[time] K1 {n}x{m}: kernel_ms={kernel_ms:.5f} "
           f"bound_ms={bound_ms:.5f} (bytes {bytes_ms:.5f}, popc "
           f"{ops_ms:.5f}) plain_ms="
@@ -555,21 +492,6 @@ class SegmentInputs:
         return self.kernel(values, index, n, init)
 
 
-def segment_bound(values, index, n: int, init) -> tuple:
-    """(bound ms, bytes ms, adds ms) of one segment sum on the card: the
-    kept rows' values, every row's index and the output (and init) moved
-    once each over HBM, or one add per kept value at the FP32 rate,
-    whichever takes longer. A dropped row's value is never needed."""
-    cols = values[0].numel() if values.shape[0] else 1
-    kept = int(((index >= 0) & (index < n)).sum())
-    size = values.element_size()
-    nbytes = (kept * cols * size + index.shape[0] * index.element_size()
-              + n * cols * size * (2 if init is not None else 1))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = kept * cols / FP32_OPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
-
-
 def check_segment_sum(kernel, v, i, n: int, init, label: str) -> tuple:
     """Launch the segment-sum `kernel` twice on these inputs, hold both
     outputs to the plain version on the same inputs copied to the CPU (to
@@ -610,6 +532,7 @@ def time_segment_sum(dev, kernel, v, i, n: int, init, label: str) -> dict:
     import torch
 
     from sgslam_tpu_torch.ops import segment
+    from sgslam_tpu_torch.utils import timing
 
     # the library calls, the dropped rows sent to a spare row
     spare = torch.where((i >= 0) & (i < n), i, n).long()
@@ -629,14 +552,14 @@ def time_segment_sum(dev, kernel, v, i, n: int, init, label: str) -> dict:
            for _ in range(3)]
     put_repeats = all(torch.equal(put[0], p) for p in put[1:])
     del put
-    ms = _graph_ms(lambda: kernel(v, i, n, init), calls=20)
-    ops = _device_ops(lambda: kernel(v, i, n, init))
-    plain_ms = _event_ms(
+    ms = timing.graph_ms(lambda: kernel(v, i, n, init), calls=20)
+    ops = timing.device_ops(lambda: kernel(v, i, n, init))
+    plain_ms = timing.event_ms(
         lambda: segment.segment_sum_reference(v, i, n, init), runs=20)
-    library_ms = _graph_ms(index_add, calls=20)
-    put_ms = _event_ms(index_put, runs=3, warmup=1)   # slow: eager
+    library_ms = timing.graph_ms(index_add, calls=20)
+    put_ms = timing.event_ms(index_put, runs=3, warmup=1)   # slow: eager
     del base, lib_out
-    bound_ms, bytes_ms, ops_ms = segment_bound(v, i, n, init)
+    bound_ms, bytes_ms, ops_ms = segment.segment_bound(v, i, n, init)
     kept = int(((i >= 0) & (i < n)).sum())
     print(f"[segment] time at {label}, values {tuple(v.shape)} "
           f"{str(v.dtype)[6:]}, index {str(i.dtype)[6:]}, {kept} of "
@@ -1255,95 +1178,58 @@ def _chunk_stage_split(timer):
             for n in names if any(n in g for g in groups)}
 
 
-def bench_setup(dev, cfg, n_chunks):
-    """bench.py's set-up on the port: the walking-person scene rendered on
-    the card, the chunks stacked once, the chunked semantic tracker with a
-    loop closer, bootstrapped on the first frames. Returns (sequence,
-    tracker, grays [n_chunks, chunk, H, W], depths)."""
-    import torch
-
-    from sgslam_tpu_torch.io import synthetic
-    from sgslam_tpu_torch.models.detector import Detector2D
-    from sgslam_tpu_torch.slam import scan_pipeline
-    from sgslam_tpu_torch.slam.loop_closing import LoopCloser
-
-    H, W = cfg.camera.height, cfg.camera.width
-    n_frames = BENCH_BOOT + n_chunks * BENCH_CHUNK
-    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames,
-                                      dynamic=True, device=dev)
-    frames = [seq.frame(i) for i in range(n_frames)]
-    g = torch.stack([f[0] for f in frames[BENCH_BOOT:]]).reshape(
-        n_chunks, BENCH_CHUNK, H, W)
-    d = torch.stack([f[1] for f in frames[BENCH_BOOT:]]).reshape(
-        n_chunks, BENCH_CHUNK, H, W)
-    torch.cuda.synchronize()
-    ct = scan_pipeline.ChunkedSemanticTracker(
-        cfg, Detector2D(cfg.detector, device=dev), chunk=BENCH_CHUNK,
-        fetch_every=BENCH_FETCH, loop=LoopCloser(cfg, device=dev),
-        device=dev)
-    for i in range(BENCH_BOOT):
-        ct.bootstrap(*frames[i])
-    if ct.inner.state != "OK":
-        raise AssertionError("bench path: the tracker failed to initialize")
-    return seq, ct, g, d
-
-
-def phase_bench_path(dev, kernels, cfg=None, warm=BENCH_WARM,
-                     timed=BENCH_TIMED):
-    """bench.py's measured step through the port: the chunked semantic
-    pipeline with loop closing, on bench.py's schedule."""
-    from sgslam_tpu_torch import config
+def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
+    """bench.py's measured step through the port: `sgslam_tpu_torch.bench
+    .run`, the chunked semantic pipeline with loop closing on bench.py's
+    schedule, with the chunk stages and loop closing timed (CUDA events)
+    and the kernels' counts set to 0 just before the timed region."""
+    from sgslam_tpu_torch import bench
     from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.ops import segment
+    from sgslam_tpu_torch.utils import timing
 
-    cfg = cfg or config.synthetic_config(640, 480)
-    n_chunks = warm + timed
-    seq, ct, g, d = bench_setup(dev, cfg, n_chunks)
-    for c in range(warm):
-        ct.process_chunk(g[c], d[c])
-    ct.flush()
-
+    warm = bench.WARM_CHUNKS if warm is None else warm
+    timed = bench.TIMED_CHUNKS if timed is None else timed
     chunk_timer, loop_timer = StageTimer(), StageTimer()
-    ct.on_chunk_stage, ct.on_stage = chunk_timer, loop_timer
-    kf0, loops0 = ct._next_kf_host, ct.loops_closed
-    _zero_counts()
-    t0 = time.perf_counter()
-    for c in range(warm, n_chunks):
-        ct.process_chunk(g[c], d[c])
-    ct.flush()
-    dt = time.perf_counter() - t0
+
+    def before_timed(ct):
+        ct.on_chunk_stage, ct.on_stage = chunk_timer, loop_timer
+        _zero_counts()
+
+    fps, ct, info = bench.run(dev, cfg, warm, timed, before_timed)
     launches = hc.hamming_kernel.launches
     kernels["hamming_matrix"]["launches"] = launches
     seg_launches = segment.segment_kernel.launches
-    fps = timed * BENCH_CHUNK / dt
+    n = info["frames"]
 
     est = ct.poses_cw()
-    gt = seq.poses[:len(est)].cpu().numpy()
+    gt = info["seq"].poses[:len(est)].cpu().numpy()
     rmse = _ate_cw(est, gt)
     min_inl = min(ct.n_inliers_hist)
     stages = _chunk_stage_split(chunk_timer)
     lc = [grp["loop_closing"] for grp in loop_timer.groups()]
-    print(f"[bench-path] bench.py's schedule: {BENCH_BOOT} bootstrap "
+    print(f"[bench-path] {json.dumps(bench.result(fps))}")
+    print(f"[bench-path] bench.py's schedule: {bench.N_BOOT} bootstrap "
           f"frames, {warm} warm chunks + flush, {timed} timed chunks of "
-          f"{BENCH_CHUNK} + flush, drained every {BENCH_FETCH} chunks; "
-          f"{ct._next_kf_host - kf0} keyframes in the timed window, "
-          f"{ct.n_kf} live keyframes, loops closed {ct.loops_closed - loops0}"
-          f", relocalizations {ct.relocs}, min inliers {min_inl}, ATE "
-          f"{rmse:.5f} m over {len(est)} frames, K1 launches {launches} "
-          f"({launches / (timed * BENCH_CHUNK):.2f}/frame), segment-sum "
-          f"launches {seg_launches} "
-          f"({seg_launches / (timed * BENCH_CHUNK):.2f}/frame)")
+          f"{bench.CHUNK} + flush, drained every {bench.FETCH_EVERY} "
+          f"chunks; {ct._next_kf_host - info['kf0']} keyframes in the timed "
+          f"window, {ct.n_kf} live keyframes, loops closed "
+          f"{ct.loops_closed - info['loops0']}, relocalizations "
+          f"{ct.relocs}, min inliers {min_inl}, ATE {rmse:.5f} m over "
+          f"{len(est)} frames, K1 launches {launches} "
+          f"({launches / n:.2f}/frame), segment-sum launches {seg_launches} "
+          f"({seg_launches / n:.2f}/frame)")
     print(f"[bench-path] frames/s (bench.py's metric: timed frames over the "
           f"wall time of the timed chunks and the final flush): {fps:.3f} "
-          f"({dt:.3f} s for {timed * BENCH_CHUNK} frames) on "
-          f"{_smi('name,power.limit')}")
+          f"({info['seconds']:.3f} s for {n} frames) on "
+          f"{timing.card(dev)}")
     print("[bench-path] per chunk (CUDA events, median; insertion rounds "
           "over the chunks that ran them): " + ", ".join(
-              f"{k} {v:.3f} ms ({n})" for k, (v, n) in stages.items()))
+              f"{k} {v:.3f} ms ({c})" for k, (v, c) in stages.items()))
     print(f"[bench-path] loop closing at the drain, per keyframe (CUDA "
           f"events): median {np.median(lc) if lc else float('nan'):.3f} ms,"
           f" max {max(lc) if lc else float('nan'):.3f} ms over {len(lc)}")
-    if min_inl < BENCH_MIN_INLIERS:
+    if min_inl < bench.MIN_INLIERS:
         raise AssertionError(f"bench path: inliers fell to {min_inl}")
     if not rmse < ATE_GATE_M:
         raise AssertionError(f"bench path: ATE {rmse:.4f} m")
@@ -1748,6 +1634,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     from sgslam_tpu_torch.ops import orb
     from sgslam_tpu_torch.ops.stereo import stereo_match
     from sgslam_tpu_torch.slam import scan_pipeline
+    from sgslam_tpu_torch.utils import timing
 
     name = "stereo_640_walk"
     cfg = cfg or run_eval._make_cfg(False)
@@ -1782,7 +1669,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     loop_ms = [groups[i]["loop_closing"] for i in kf_frames]
     gl, gr = pairs[n_frames // 2]
     feats = orb.extract(gl, cfg.orb, cfg.camera)
-    sm_ms = _event_ms(lambda: stereo_match(
+    sm_ms = timing.event_ms(lambda: stereo_match(
         cfg.camera, gl, gr, feats.xy_raw, feats.level, feats.valid), runs=20)
     n_ok = int(stereo_match(cfg.camera, gl, gr, feats.xy_raw, feats.level,
                             feats.valid)[2].sum())
@@ -1895,6 +1782,7 @@ def phase_mono(dev, cfg=None, n_frames=MONO_FRAMES):
     from sgslam_tpu_torch.optim import initializer
     from sgslam_tpu_torch.slam import mono
     from sgslam_tpu_torch.slam.system import System
+    from sgslam_tpu_torch.utils import timing
 
     cfg = cfg or mono_config()
     seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames,
@@ -1949,7 +1837,7 @@ def phase_mono(dev, cfg=None, n_frames=MONO_FRAMES):
     gate = MONO_ATE_FACTOR * max(span, 1.0)
     args, out = calls[-1][0], calls[-1][1]      # the accepted attempt
     init_ms = [a.elapsed_time(b) for _, _, a, b in calls]
-    alone_ms = _event_ms(lambda: initializer.initialize_mono(*args[:4],
+    alone_ms = timing.event_ms(lambda: initializer.initialize_mono(*args[:4],
                                                              samples=args[4]),
                          runs=10)
     # every attempt again on the CPU, same matches and draws; and the sign
@@ -2292,6 +2180,160 @@ def phase_eval_suite(dev, name=EVAL_SEQUENCE):
                                  f"times, the segment sum {seg}")
 
 
+def _run_harness(name, main, argv):
+    """Run a harness's `main(argv)` with its stdout captured; echo each
+    line as `[harness] name: line` (so that the last line stays the
+    contract's) and return the JSON objects it printed and its wall s."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[harness] {name}: {line}")
+    if rc != 0:
+        raise AssertionError(f"harness {name} {argv}: exit code {rc}")
+    return [json.loads(x) for x in lines if x.startswith("{")], wall
+
+
+def _positive(label, x):
+    if not (isinstance(x, (int, float)) and np.isfinite(x) and x > 0):
+        raise AssertionError(f"{label}: {x!r} is not a finite positive "
+                             "number")
+
+
+def _launched(label, k1: bool, seg: bool):
+    """Fail unless K1 / the segment sum launched since `_zero_counts`."""
+    from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.ops import segment
+
+    got = (hc.hamming_kernel.launches, segment.segment_kernel.launches)
+    print(f"[harness] {label}: K1 launches {got[0]}, segment-sum launches "
+          f"{got[1]}")
+    if (k1 and got[0] < 1) or (seg and got[1] < 1):
+        raise AssertionError(f"{label}: K1 / the segment sum launched "
+                             f"{got} times")
+
+
+def phase_harnesses(dev):
+    """The measurement harnesses, each through its `main` on the card, at
+    reduced depth, and `entry()` once. Cuts: `profile_chunk` 2 reps (10);
+    `bench_sweep` chunk 4 only (4, 8) at depths 0 and 1 over 30 frames
+    (110), no `--stages`; `bench_kernels` 2 reps of 2 calls (5 of 8);
+    `bench_dist_ba` at world size 1 on NCCL (1, 2, 4, 8 shards; one card);
+    `bench_dist_ba_realmap` at (1,1) only (one card), 4 LM iterations (its
+    default). `bench` itself is phase 10. Each output must be well formed:
+    its keys, finite positive times, the card's name and power limit, the
+    realmap cost falling; K1 and the segment sum must have launched on
+    each path that runs them (in the spawned ranks of the two distributed
+    benches, as their rank 0 reports)."""
+    import torch
+
+    from sgslam_tpu_torch import (bench_dist_ba, bench_dist_ba_realmap,
+                                  bench_kernels, bench_sweep, entry,
+                                  profile_chunk)
+    from sgslam_tpu_torch.utils import timing
+
+    card = timing.card(dev)
+    walls = {}
+
+    def labelled(name, label):
+        if not str(label).startswith(card):
+            raise AssertionError(f"{name}: labelled {label!r}, not {card!r}")
+
+    _zero_counts()
+    (res,), walls["profile_chunk"] = _run_harness(
+        "profile_chunk", profile_chunk.main,
+        ["--reps", str(HARNESS_PROFILE_REPS)])
+    labelled("profile_chunk", res["device"])
+    rows = ("chunk4_full_kf_allowed", "chunk4_no_kf", "extract4",
+            "chunk4_no_kf_no_det_no_sem", "track_step_1",
+            "insert_and_maintain", "local_ba_step")
+    if set(res["ms"]) != set(rows) or res["map"]["keyframes"] < 2:
+        raise AssertionError(f"profile_chunk: {res}")
+    for r in rows:
+        _positive(f"profile_chunk {r}", res["ms"][r])
+    _launched("profile_chunk", True, True)
+
+    _zero_counts()
+    sweep, walls["bench_sweep"] = _run_harness(
+        "bench_sweep", bench_sweep.main,
+        ["--chunks", "4", "--depths", "0,1", "--frames",
+         str(HARNESS_SWEEP_FRAMES)])
+    if [(r["chunk"], r["depth"]) for r in sweep] != [(4, 0), (4, 1)]:
+        raise AssertionError(f"bench_sweep: {sweep}")
+    for r in sweep:
+        labelled("bench_sweep", r["device"])
+        _positive("bench_sweep fps", r["fps"])
+        if r["hamming"] != "k1" or r["min_inliers"] < MIN_INLIERS:
+            raise AssertionError(f"bench_sweep: {r}")
+    _launched("bench_sweep", True, True)
+
+    _zero_counts()
+    path = os.path.join(HARNESS_OUT, "kernels_chip_smoke.json")
+    _, walls["bench_kernels"] = _run_harness(
+        "bench_kernels", bench_kernels.main,
+        ["--reps", str(HARNESS_KERNEL_REPS), "--k", str(HARNESS_KERNEL_K),
+         "--out", path])
+    with open(path) as f:
+        table = json.load(f)
+    labelled("bench_kernels", table["device"])
+    for key in ("bf16_gemm_tflops", "hbm_stream_gbps"):
+        _positive(f"bench_kernels {key}", table["calibration"][key])
+    timed = {k: r for k, r in table["kernels"].items() if "ms" in r}
+    if len(timed) != 6 or not any(k.startswith("hamming_k1") for k in timed):
+        raise AssertionError(f"bench_kernels rows: {list(table['kernels'])}")
+    for k, r in timed.items():
+        _positive(f"bench_kernels {k}", r["ms"])
+        if r.get("work") != "not counted":
+            _positive(f"bench_kernels {k} share", r["share_of_bound"])
+    _launched("bench_kernels", True, True)
+
+    dist_rows, walls["bench_dist_ba"] = _run_harness(
+        "bench_dist_ba", bench_dist_ba.main, ["--devices", "1"])
+    if [r["pt_shards"] for r in dist_rows] != [1]:
+        raise AssertionError(f"bench_dist_ba: {dist_rows}")
+    labelled("bench_dist_ba", dist_rows[0]["device"])
+    _positive("bench_dist_ba wall_s", dist_rows[0]["wall_s"])
+    _positive("bench_dist_ba segment-sum launches (rank 0)",
+              dist_rows[0]["segment_sum_launches"])
+
+    path = os.path.join(HARNESS_OUT, "multichip_chip_smoke.json")
+    _, walls["bench_dist_ba_realmap"] = _run_harness(
+        "bench_dist_ba_realmap", bench_dist_ba_realmap.main,
+        ["--devices", "1", "--iters", str(HARNESS_REALMAP_ITERS), "--out",
+         path])
+    with open(path) as f:
+        scale = json.load(f)
+    labelled("bench_dist_ba_realmap", scale["device"])
+    (lay,) = scale["layouts"]
+    _positive("bench_dist_ba_realmap wall_s", lay["wall_s"])
+    _positive("bench_dist_ba_realmap segment-sum launches (rank 0)",
+              lay["segment_sum_launches"])
+    if not (lay["mesh"] == "kf=1 x pt=1"
+            and lay["cost_after"] < scale["cost_before"]):
+        raise AssertionError(f"bench_dist_ba_realmap: {scale}")
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    fn, args = entry.entry(dev)
+    Tcw, matched, n_inl = fn(*args)[:3]
+    torch.cuda.synchronize()
+    walls["entry"] = time.perf_counter() - t0
+    if not (bool(torch.isfinite(Tcw).all()) and tuple(Tcw.shape) == (7,)
+            and int(n_inl) >= MIN_INLIERS
+            and int((matched >= 0).sum()) >= MIN_INLIERS):
+        raise AssertionError(f"entry(): pose {Tcw}, {int(n_inl)} inliers")
+    print(f"[harness] entry(): pose {Tcw.cpu().numpy().round(6).tolist()}, "
+          f"{int(n_inl)} inliers, {int((matched >= 0).sum())} matched")
+    _launched("entry()", True, False)
+    print(f"[harness] wall s per harness on {card}: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+
+
 def _grads(dev, steps, batch, seed, b, drop_loc=False):
     """A fresh trainer's model (seed `seed`) with the gradients of
     `batched_loss` on batch `b`; `drop_loc` leaves the localization term
@@ -2353,6 +2395,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
 
     from sgslam_tpu_torch import config
+    from sgslam_tpu_torch.utils import timing
 
     t_start = time.perf_counter()
     from sgslam_tpu_torch import run_eval
@@ -2390,6 +2433,7 @@ def main() -> int:
     run("16", phase_scale_out)
     run("17", phase_detector_training)
     run("18", phase_eval_suite)
+    run("19", phase_harnesses)
     rec.phase = "-"
     kernels["segment_sum"] = phase_segment(dev, rec, seg_launches)
     if any(k["launches"] < 1 for k in kernels.values()):
@@ -2401,7 +2445,7 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s")
     print(f"[whole-run] {json.dumps(WHOLE_RUN)}")
     print(json.dumps({"kernels": list(kernels.values())}))
-    print(_smi("name,power.limit"))
+    print(timing.smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.timing import PEAKS, smi
+
 WORDS = 8
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCE = CSRC / "hamming.cu"
@@ -52,6 +54,37 @@ def hamming_matrix_reference(a, b):
         out += _popcount32(x & 0xFFFFFFFF)
     return out.to(torch.int32)
 
+
+def unpack_bits(x):
+    """[K,8] int32 words -> [K,256] float32 {0,1} bits: the input of the
+    library call for the same function, `torch.cdist(bits_a, bits_b,
+    p=0)`, which timing sets beside K1."""
+    shifts = torch.arange(32, device=x.device, dtype=torch.int64)
+    bits = (x.to(torch.int64)[:, :, None] >> shifts) & 1
+    return bits.reshape(x.shape[0], 256).to(torch.float32)
+
+# Documented popc throughput of compute capability 9.0, per clock per SM.
+POPC_PER_CLK_SM = 16
+
+
+def hamming_bound(n: int, m: int, popc_per_s: float) -> tuple:
+    """(bound ms, bytes ms, popc ms) of one [n,8] x [m,8] distance matrix
+    on an H100: both inputs read and the int32 output written once at the
+    published HBM rate, or n * m * 8 popcounts at `popc_per_s`, whichever
+    takes longer."""
+    bytes_ms = ((n + m) * WORDS * 4 + n * m * 4) / PEAKS[
+        "hbm_bytes_per_s"] * 1e3
+    ops_ms = n * m * WORDS / popc_per_s * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
+def documented_popc_rate(device) -> float:
+    """popc per second of the card at its maximum SM clock by the
+    documented POPC_PER_CLK_SM (the least rate K1's bound may take)."""
+    dev = torch.device(device)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_mhz = float(smi("clocks.max.sm", dev.index or 0).split()[0])
+    return POPC_PER_CLK_SM * sms * max_mhz * 1e6
 
 def build_library(verbose: bool = False, source: Path = _SOURCE) -> Path:
     """Compile a CUDA source of csrc/ (by default hamming.cu), if not

@@ -29,7 +29,6 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -38,6 +37,7 @@ import torch
 
 from . import config, resolve_device
 from .io import synthetic
+from .utils import timing
 
 BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "build")
@@ -280,11 +280,7 @@ def device_info(device) -> dict:
     dev = torch.device(device)
     info = {"type": dev.type, "torch": torch.__version__}
     if dev.type == "cuda":
-        res = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader", "-i", str(dev.index or 0)],
-            capture_output=True, text=True, check=True)
-        name, limit = (x.strip() for x in res.stdout.strip().split(","))
+        name, limit = (x.strip() for x in timing.card(dev).split(","))
         info.update(name=name, power_limit=limit)
     else:
         info.update(name="cpu", power_limit=None)

@@ -28,12 +28,15 @@ import sgslam_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sgslam_tpu_torch.__path__,
                                               "sgslam_tpu_torch.")]
 # the stereo, monocular, dataset-CLI, segment-sum, scale-out, detector
-# training, evaluation and asset-building modules by name, then every module
+# training, evaluation, asset-building and measurement modules by name, then
+# every module
 NAMED = ["ops.stereo", "optim.initializer", "slam.mono", "io.tum",
          "io.native", "viz", "viewer", "run_tum", "ops.segment",
          "parallel.dist_ba", "parallel.map_partition", "parallel.multihost",
          "parallel.dryrun", "models.detector_train", "train_detector",
-         "run_eval", "build_eval_map", "build_vocab", "debug_stress"]
+         "run_eval", "build_eval_map", "build_vocab", "debug_stress",
+         "bench", "bench_kernels", "bench_sweep", "profile_chunk",
+         "bench_dist_ba", "bench_dist_ba_realmap", "entry"]
 missing = [n for n in NAMED if "sgslam_tpu_torch." + n not in names]
 for name in ["sgslam_tpu_torch." + n for n in NAMED] + names:
     importlib.import_module(name)

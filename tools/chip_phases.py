@@ -43,6 +43,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    from sgslam_tpu_torch.utils import timing
 
     if not torch.cuda.is_available():
         print("chip_phases: no CUDA device", file=sys.stderr)
@@ -50,7 +51,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    print(f"[chip_phases] {root} on {cs._smi('name,power.limit')}")
+    print(f"[chip_phases] {root} on {timing.card(0)}")
     cs.phase_build()
     if a.segments:
         from sgslam_tpu_torch.ops import segment

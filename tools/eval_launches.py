@@ -23,12 +23,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import chip_smoke  # noqa: E402
 from sgslam_tpu_torch import run_eval  # noqa: E402
+from sgslam_tpu_torch.utils import timing  # noqa: E402
 
 
 def main(argv=None) -> int:
     with chip_smoke.launches_per_path() as counts:
         res = run_eval.main(argv)
-    print(chip_smoke._smi("name,power.limit"))
+    print(timing.card(0))
     runs = iter(counts)
     for name, row in res["sequences"].items():
         line = {"sequence": name, "pass": row["pass"]}

@@ -45,7 +45,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -55,13 +54,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
-from sgslam_tpu_torch import config, run_eval  # noqa: E402
+from sgslam_tpu_torch import bench, config, run_eval  # noqa: E402
 from sgslam_tpu_torch.io import checkpoint, synthetic  # noqa: E402
 from sgslam_tpu_torch.mapping.semantic_mapper import SemanticMapper  # noqa: E402
 from sgslam_tpu_torch.ops import hamming_cuda  # noqa: E402
 from sgslam_tpu_torch.semantic.dynamic import SemanticFrontend  # noqa: E402
 from sgslam_tpu_torch.slam import tracking  # noqa: E402
 from sgslam_tpu_torch.slam.system import System  # noqa: E402
+from sgslam_tpu_torch.utils import timing  # noqa: E402
 
 
 def _kernel_stats(prof):
@@ -101,13 +101,6 @@ def _profiled(fn, n_frames):
                          "us_per_frame": us / n_frames}
                         for k, c, us in rows[:10]],
     }
-
-
-def _smi():
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader", "--id=0"],
-                          capture_output=True, text=True, check=True,
-                          timeout=60).stdout.strip()
 
 
 def _print_stage(name, r, unit="frame"):
@@ -162,7 +155,7 @@ def profile_system(args, dev) -> int:
         lambda: [mapper.insert_keyframe(g, d, s.tracker.Tcw, boxes[i][2],
                                         boxes[i][3])
                  for i, (g, d) in enumerate(window[:3])], 3)
-    smi = _smi()
+    smi = timing.card(0)
     out = {"device": smi, "torch": torch.__version__, "window_frames": n,
            "frame_range": [start, args.frames],
            "keyframes_in_window": keyframes,
@@ -183,8 +176,8 @@ def profile_system(args, dev) -> int:
 
 def profile_chunk(args, dev) -> int:
     cfg = config.synthetic_config(640, 480)
-    warm = chip_smoke.BENCH_WARM
-    _, ct, g, d = chip_smoke.bench_setup(dev, cfg, warm + args.chunks)
+    warm = bench.WARM_CHUNKS
+    _, ct, g, d = bench.setup(dev, cfg, warm + args.chunks)
     for c in range(warm):
         ct.process_chunk(g[c], d[c])
     ct.flush()
@@ -196,21 +189,21 @@ def profile_chunk(args, dev) -> int:
             ct.process_chunk(g[c], d[c])
         ct.flush()
 
-    n = args.chunks * chip_smoke.BENCH_CHUNK
+    n = args.chunks * bench.CHUNK
     r = _profiled(run, n)
-    smi = _smi()
+    smi = timing.card(0)
     out = {"device": smi, "torch": torch.__version__, "chunks": args.chunks,
            "frames": n, "keyframes": ct._next_kf_host - kf0,
            "loops_closed": ct.loops_closed,
            "k1_launches_per_frame": hamming_cuda.hamming_kernel.launches / n,
            "dtoh_copies_per_chunk": r["dtoh_copies_per_frame"]
-           * chip_smoke.BENCH_CHUNK, "profile": r}
+           * bench.CHUNK, "profile": r}
     path = args.out or "build/profile_torch_chunk.json"
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(f"[profile] chunked pipeline, {args.chunks} chunks of "
-          f"{chip_smoke.BENCH_CHUNK} after {warm} warm chunks: "
+          f"{bench.CHUNK} after {warm} warm chunks: "
           f"{out['keyframes']} keyframes, K1 "
           f"{out['k1_launches_per_frame']:.2f} launches/frame, "
           f"{out['dtoh_copies_per_chunk']:.1f} device-to-host copies/chunk")
@@ -282,7 +275,7 @@ def main() -> int:
                                     device=dev)
     backend_eval = backend(chip_smoke.eval_config(), m_eval,
                            int(torch.nonzero(m_eval.kf_valid).max()))
-    smi = _smi()
+    smi = timing.card(0)
     repeat_diff = float(abs(tr.poses_cw() - first.poses_cw()).max())
     result = {"device": smi, "torch": torch.__version__,
               "repeat_pose_max_abs_diff": repeat_diff,

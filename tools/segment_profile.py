@@ -27,21 +27,22 @@ checkouts, `--root`) get the same ones:
         -> 16777216 rows.
 
 For each shape it runs chip_smoke.py's own check and timing of the
-segment sum (`check_segment_sum`, `time_segment_sum`): the kernel held to
-its plain version on the CPU to the bit and to a second launch, one
-wrapper call timed by CUDA-graph replay beside its bound, its plain
-version and `index_add_`, and the device operations of one eager call
-(`torch.profiler` with CUDA activity) with their device time per call. It
-prints the card's name and power limit first. With `--root` it profiles
-the segment sum of another checkout (for example the parent commit
-unpacked under build/) with this checkout's chip_smoke.py: run one process
-per checkout, in turns, in one call.
+segment sum (`check_segment_sum`, `time_segment_sum`, whose timers and
+bound are `sgslam_tpu_torch.utils.timing`'s and `ops.segment.
+segment_bound`): the kernel held to its plain version on the CPU to the
+bit and to a second launch, one wrapper call timed by CUDA-graph replay
+beside its bound, its plain version and `index_add_`, and the device
+operations of one eager call (`torch.profiler` with CUDA activity) with
+their device time per call. It prints the card's name and power limit
+first. With `--root` it profiles the segment sum of another checkout (for
+example the parent commit unpacked under build/): that checkout's
+package, and its chip_smoke.py's check and timing; run one process per
+checkout, in turns, in one call.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import os
 import sys
 
@@ -125,20 +126,15 @@ def main() -> int:
 
     import torch
 
+    import chip_smoke as cs
     from sgslam_tpu_torch.ops import segment
-
-    # this checkout's chip_smoke.py, whatever --root: sys.path points the
-    # port's package at --root, so it is loaded from its file
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(here, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    from sgslam_tpu_torch.utils import timing
 
     if not torch.cuda.is_available():
         print("segment_profile: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    print(f"[segment] {root} on {cs._smi('name,power.limit')}, "
+    print(f"[segment] {root} on {timing.card(dev)}, "
           f"torch {torch.__version__}")
     segment.segment_kernel.load(verbose=True)
     for name in a.shapes.split(","):
