@@ -5,17 +5,23 @@
 
 Phases, each of which fails the run if it fails:
   1. build every CUDA source of the port (`csrc/hamming.cu`, K1,
-     `csrc/segment_sum.cu`, the deterministic segment sum, and
-     `csrc/popc_bench.cu`, the popc-rate microbenchmark), one nvcc each,
-     started together;
+     `csrc/hamming_search.cu`, the fused search K1s, and
+     `csrc/segment_sum.cu`, the deterministic segment sum), one nvcc
+     each, started together;
   2. hold K1 against its plain PyTorch version on the card at every shape
-     that phases 4-6 give it, taken from their configurations: tracking and
-     duplicate fusion (local points x keypoints) and triangulation
-     (keypoints x keypoints) (exact equality);
-  3. measure the card's popc issue rate, then time K1, its plain version and
-     one library call computing the same function (CUDA events around
-     CUDA-graph replays, so that host time is not counted), and reckon K1's
-     bound from the higher of the measured rate and the documented one;
+     that the phases' configurations give it: tracking and duplicate
+     fusion (local points x keypoints) and triangulation (keypoints x
+     keypoints) (exact equality); hold K1s, twice, against its plain
+     version (K1 and the torch chain) to the bit at every
+     call site's shape, window and mutual flag (`k1s_cases`), on inputs
+     with planted edge cases (`ops/search_cases.py`), and check that a
+     search allocates nothing near [Q, N];
+  3. time K1, its plain version and one library call computing the same
+     function (CUDA events around CUDA-graph replays, so that host time
+     is not counted), against K1's bound (its output's bytes: the
+     tensor-core route is faster than its work); time K1s, the chain it
+     replaces and its bound (what the input needs) at the tracking, cull
+     and triangulation shapes;
   4. drive the main path at full width: 60 frames of the synthetic room at
      640x480 through `Tracker` with its defaults (1000 features, 1024
      keypoints, 4096 local points, the keyframe back-end after every
@@ -35,9 +41,9 @@ Phases, each of which fails the run if it fails:
      and configuration (150 frames at 640x480, three walkers, fast
      rotation, rendered on the card by run_eval's `_render`)
      through `System(cfg, enable_loop=False).track_rgbd` with the shipped
-     SSDLite detector, the dynamic-feature cull (one K1 launch per frame
+     SSDLite detector, the dynamic-feature cull (one K1s launch per frame
      for the frame-to-frame matches), tracking with the back-end and the
-     semantic mapper; checks state, ATE, person detections, K1 launches
+     semantic mapper; checks state, ATE, person detections, K1s launches
      and the occupancy map, and times each stage with CUDA events;
   8. semantic objects at a smaller depth: tests/test_semantic_objects_live
      .py's run (24 frames at 320x240, people and props): an object of the
@@ -50,7 +56,7 @@ Phases, each of which fails the run if it fails:
      Detector2D, chunk=4, fetch_every=6, loop=LoopCloser(cfg))` on
      bench.py's schedule (6 bootstrap frames of the 640x480 walking-person
      scene, 12 warm chunks + flush untimed, 24 timed chunks + flush);
-     checks state, inliers (bench.py's assert), ATE and K1 launches,
+     checks state, inliers (bench.py's assert), ATE and K1s launches,
      prints the bench's JSON line (on a `[bench-path]` line), frames/s as
      bench.py computes it and the per-chunk stage times and per-keyframe
      loop-closing times (CUDA events);
@@ -93,7 +99,7 @@ Phases, each of which fails the run if it fails:
  15. the dataset CLI on the card: `run_tum.main(["--synthetic", "60", ...])`
      per frame and `--chunked` (default flags, the `tum3` preset): the
      summary keys of `sgslam_tpu/run_tum.py`, ATE under run_eval's 0.03 m
-     static gate, K1 launched on the card;
+     static gate, K1s launched on the card;
  16. scale-out at world size 1 on NCCL (a file rendezvous under build/):
      the port's dryrun of the multi-chip contract on `eval_map.npz` (points
      moved by 0.01 m, 8 LM iterations of the distributed global BA), whose
@@ -108,14 +114,14 @@ Phases, each of which fails the run if it fails:
  18. the accuracy suite's entry point: `run_eval.main(["--only",
      "static_640_tum1_distortion", ...])` at full length (120 frames at
      640x480 on the TUM1-distorted camera, System and chunked paths):
-     both ATEs under the row's 0.03 m gate, `parity_ok`, and K1 and the
+     both ATEs under the row's 0.03 m gate, `parity_ok`, and K1s and the
      segment sum launched on each path;
  19. the measurement harnesses at reduced depth, each through its `main`
      on the card (`profile_chunk`, `bench_sweep`, `bench_kernels`,
      `bench_dist_ba` and `bench_dist_ba_realmap` at world size 1 on NCCL)
      and `entry()` once; their outputs well formed (keys, finite positive
      times, the card's name and power limit, the realmap cost falling) and
-     K1 and the segment sum launched where they run (`phase_harnesses`
+     K1s and the segment sum launched where they run (`phase_harnesses`
      lists the cuts);
   then the segment sum against its plain version (to the bit) at every
   call site and shape that phases 4-19 gave it (the first call of each is
@@ -126,12 +132,13 @@ Phases, each of which fails the run if it fails:
   values that a change of the kernels must leave alone (phases 7, 11a, 13
   and 18), the `kernels` line, the card's name and power limit, and last
   `{"ok": true, "device": ...}`.
-Both kernels' launch counts are set to 0 just before each path of phases
-4-8, 10-16, 18 and 19 (each run of 11 and 12, each path of 13 and 18, both
-calls of 15, each harness of 19 that runs in this process)
-and read just after; each path that runs the BA, the pose graph or the
-mapper must have launched the segment sum. The `kernels` line carries
-phase 10's counts (the timed window of bench.py's schedule). Phase 7's
+K1s's and the segment sum's launch counts (and K1's) are set to 0 just
+before each path of phases 4-8, 10-16, 18 and 19 (each run of 11 and 12,
+each path of 13 and 18, both calls of 15, each harness of 19 that runs in
+this process) and read just after; each path that runs the BA, the pose
+graph or the mapper must have launched the segment sum. The `kernels`
+line carries phase 10's counts (the timed window of bench.py's schedule),
+where K1 must not launch: every search goes through K1s. Phase 7's
 `System` runs with loop closing on (its default), so its frame times
 include the loop closer's keyframe database work.
 
@@ -142,7 +149,6 @@ exits non-zero and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import json
 import os
 import sys
@@ -156,6 +162,13 @@ ATE_GATE_M = 0.05
 MIN_INLIERS = 30
 # K1 shapes beyond the path's: an odd one and a self-distance check
 K1_EXTRA_SHAPES = [(200, 333), (128, 128)]
+# K1s cases beyond the path's, as (q, n, level window or None, mutual): a
+# ragged column count, and the CPU tests' size with a window and mutual
+K1S_EXTRA_CASES = [(1024, 1000, 1, False), (1024, 1000, None, True),
+                   (300, 257, 7, True)]
+# K1s's timed cases: tracking's search, the cull's, triangulation's
+K1S_TIMED = [(4096, 1024, 1, False), (1024, 1024, 1, False),
+             (1024, 1024, None, True)]
 
 EVAL_MAP = os.path.join("sgslam_tpu", "assets", "eval_map.npz")
 # card vs CPU on the eval map's 16+8 window: the tolerances of
@@ -268,29 +281,22 @@ def _segment_step(op: str) -> str:
 
 
 def phase_build():
-    """Build every CUDA source at once (nvcc runs outside the GIL); load
-    K1 and the segment sum and return the ctypes handle of the popc
-    microbenchmark."""
+    """Build every CUDA source at once (nvcc runs outside the GIL) and load
+    K1, K1s and the segment sum."""
     from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.ops import hamming_search as hs
     from sgslam_tpu_torch.ops import segment
 
     t0 = time.perf_counter()
-    sources = [hc.CSRC / "hamming.cu", hc.CSRC / "segment_sum.cu",
-               hc.CSRC / "popc_bench.cu"]
+    sources = [hc.CSRC / "hamming.cu", hc.CSRC / "hamming_search.cu",
+               hc.CSRC / "segment_sum.cu"]
     with ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(lambda s: hc.build_library(True, s), sources))
+        list(pool.map(lambda s: hc.build_library(True, s), sources))
     hc.hamming_kernel.load()
+    hs.hamming_search_kernel.load()
     segment.segment_kernel.load()
-    popc = ctypes.CDLL(str(libs[2]))
-    popc.sgslam_popc_bench.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_void_p]
-    popc.sgslam_popc_bench.restype = ctypes.c_int
-    for fn in (popc.sgslam_popc_bench_chains, popc.sgslam_popc_bench_threads):
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
     print(f"[build] {', '.join(s.name for s in sources)} built and loaded "
           f"in {time.perf_counter() - t0:.2f} s")
-    return popc
 
 
 def _descs(rng, dev, n):
@@ -337,61 +343,7 @@ def phase_k1_parity(dev, rng, shapes) -> int:
     return max_err
 
 
-def _popc_expected(tid, iters, chains):
-    """The microbenchmark's output for thread `tid`, on the host."""
-    total = 0
-    for k in range(chains):
-        x = (tid * 2654435761 + k * 40503) & 0xFFFFFFFF
-        for _ in range(iters):
-            total += bin(x).count("1")
-            x = (x + 0x9E3779B9) & 0xFFFFFFFF
-    return total & 0xFFFFFFFF
-
-
-def phase_popc_rate(dev, popc) -> float:
-    """The card's popc rate (popc per second) for K1's bound: the higher of
-    the microbenchmark's (csrc/popc_bench.cu) and the documented one (at
-    the card's maximum SM clock), so that the bound is never flattered."""
-    import torch
-
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
-    from sgslam_tpu_torch.utils import timing
-
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    threads = popc.sgslam_popc_bench_threads()
-    chains = popc.sgslam_popc_bench_chains()
-    blocks, iters = 8 * sms, 4096             # 2048 threads on every SM
-    out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
-
-    def launch(it=iters):
-        err = popc.sgslam_popc_bench(
-            out.data_ptr(), blocks, it,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"popc benchmark launch failed: CUDA error "
-                               f"{err}")
-
-    launch(64)
-    got = out[:4].cpu().numpy().view(np.uint32)
-    want = [_popc_expected(t, 64, chains) for t in range(4)]
-    if list(got) != want:
-        raise AssertionError(f"popc benchmark computed {got}, not {want}")
-    ms = timing.event_ms(launch, runs=20)
-    clock_mhz = float(timing.smi("clocks.sm").split()[0])
-    max_mhz = float(timing.smi("clocks.max.sm").split()[0])
-    rate = blocks * threads * iters * chains / (ms * 1e-3)
-    documented = hc.documented_popc_rate(dev)
-    print(f"[popc] {blocks} blocks x {threads} threads x {iters} x {chains} "
-          f"popc in {ms:.4f} ms: {rate:.4e} popc/s = "
-          f"{rate / (sms * max_mhz * 1e6):.2f} per clock per SM at the "
-          f"maximum SM clock {max_mhz:.0f} MHz ({sms} SMs; SM clock read "
-          f"after the run {clock_mhz:.0f} MHz); documented "
-          f"{hc.POPC_PER_CLK_SM}/clk/SM: {documented:.4e} popc/s; the bound "
-          f"uses {max(rate, documented):.4e} popc/s")
-    return max(rate, documented)
-
-
-def phase_k1_time(dev, rng, popc_rate: float, max_err: int, shapes):
+def phase_k1_time(dev, rng, max_err: int, shapes):
     """Time K1 at the paths' shapes; its entry of the kernels line."""
     import torch
 
@@ -403,7 +355,7 @@ def phase_k1_time(dev, rng, popc_rate: float, max_err: int, shapes):
             continue
         a, b = _descs(rng, dev, n), _descs(rng, dev, m)
         ms = timing.graph_ms(lambda: hc.hamming_kernel(a, b), calls=20)
-        bound = hc.hamming_bound(n, m, popc_rate)[0]
+        bound = hc.hamming_bound(n, m)[0]
         print(f"[time] K1 {n}x{m}: kernel_ms={ms:.5f} bound_ms={bound:.5f}")
 
     # the tracking shape: 4096 local points x 1024 keypoints
@@ -419,10 +371,10 @@ def phase_k1_time(dev, rng, popc_rate: float, max_err: int, shapes):
                        hc.hamming_matrix_reference(a, b)):
         raise AssertionError("cdist yardstick disagrees with K1's function")
     library_ms = timing.graph_ms(lambda: torch.cdist(ba, bb, p=0), calls=5)
-    bound_ms, bytes_ms, ops_ms = hc.hamming_bound(n, m, popc_rate)
+    bound_ms, bytes_ms, ops_ms = hc.hamming_bound(n, m)
     print(f"[time] K1 {n}x{m}: kernel_ms={kernel_ms:.5f} "
-          f"bound_ms={bound_ms:.5f} (bytes {bytes_ms:.5f}, popc "
-          f"{ops_ms:.5f}) plain_ms="
+          f"bound_ms={bound_ms:.5f} (bytes {bytes_ms:.5f}, int8 tensor-core "
+          f"ops {ops_ms:.5f}) plain_ms="
           f"{plain_ms:.5f} library_ms(cdist p=0)={library_ms:.5f} (device "
           f"times from CUDA-graph replay); one eager wrapper call between "
           f"events: {call_ms:.5f} ms")
@@ -433,6 +385,143 @@ def phase_k1_time(dev, rng, popc_rate: float, max_err: int, shapes):
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": library_ms}
+
+
+def path_configs():
+    """The configurations of the paths that phases 4-19 drive."""
+    from sgslam_tpu_torch import config, run_eval
+
+    return [config.synthetic_config(640, 480), eval_config(),
+            capacity_config(), run_eval._make_cfg(False), objects_config(),
+            kidnap_config(), mono_config()]
+
+
+def k1s_cases(cfgs):
+    """K1s's call sites on the paths of `cfgs`, as (q, n, level window or
+    None, mutual): tracking (local points x keypoints, window 1) and its
+    brute-force fallback (mutual), duplicate fusion (local points x
+    keypoints, window 7), the cull and loop closing's widening (keypoints
+    x keypoints, window 1), triangulation and loop matching (keypoints x
+    keypoints, mutual) and mono initialisation (not mutual); then
+    K1S_EXTRA_CASES."""
+    cases = []
+    for cfg in cfgs:
+        k, lp = cfg.orb.max_keypoints, cfg.capacity.local_points
+        for case in ((lp, k, 1, False), (lp, k, 7, False),
+                     (lp, k, None, True), (k, k, 1, False),
+                     (k, k, None, True), (k, k, None, False)):
+            if case not in cases:
+                cases.append(case)
+    return cases + [c for c in K1S_EXTRA_CASES if c not in cases]
+
+
+def _k1s_label(lw, mutual):
+    return (f"window {lw}" if lw is not None else "descriptor") + (
+        ", mutual" if mutual else "")
+
+
+def phase_k1s_parity(dev, cases=None) -> int:
+    """K1s against its plain version (K1 and the torch chain) to the bit,
+    best_idx, best, second and the column argmin, twice (the workspace
+    must come back zeroed), at every case, on
+    seeded inputs with every planted edge case (`ops/search_cases.py`,
+    denormal windows included); then that a search at the tracking shape
+    allocates nothing near [Q, N]."""
+    import torch
+
+    from sgslam_tpu_torch.ops import hamming_search as hs
+    from sgslam_tpu_torch.ops.search_cases import search_args, search_case
+
+    cases = cases or k1s_cases(path_configs())
+    rng = np.random.default_rng(1)
+    names = ("best_idx", "best", "second", "rbest")
+    max_err = 0
+    for q, n, lw, mutual in cases:
+        label = f"{q}x{n} {_k1s_label(lw, mutual)}"
+        args = search_args(search_case(rng, q, n, denormals=True), dev, lw)
+        want = hs.hamming_search_reference(*args, mutual=mutual)
+        if lw is not None and int(want[0][26]) == n - 10:
+            raise AssertionError(f"K1s {label}: the plain version took the "
+                                 "feature outside the denormal window")
+        for _ in range(2):
+            got = hs.hamming_search_kernel(*args, mutual=mutual)
+            torch.cuda.synchronize()
+            for name, g, w in zip(names, got, want):
+                if w is None:
+                    continue
+                err = int((g.long() - w.long()).abs().max())
+                max_err = max(max_err, err)
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    bad = int((g != w).sum())
+                    raise AssertionError(
+                        f"K1s {label}: {name} differs from its plain "
+                        f"version in {bad} entries (max |err| {err})")
+        print(f"[parity] K1s {label}: exact, twice (max |err| {max_err})")
+
+    q, n = 4096, 1024
+    args = search_args(search_case(rng, q, n), dev, 1)
+    hs.hamming_search_kernel(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    hs.hamming_search_kernel(*args)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    print(f"[parity] K1s {q}x{n}: a search allocates {extra} bytes (a "
+          f"[Q, N] bool mask alone would be {q * n})")
+    if extra >= q * n // 8:
+        raise AssertionError(f"K1s allocated {extra} bytes at {q}x{n}")
+    return max_err
+
+
+def phase_k1s_time(dev, max_err: int = 0):
+    """Time K1s, its plain chain and its bound at K1S_TIMED; its entry of
+    the kernels line, at the tracking shape. The bound counts what the
+    input needs: with a window every pair's window test and the
+    candidates' distances (the dense count, every pair's distance, is
+    printed beside it). No single PyTorch call computes the search:
+    `library_ms` is null, and the chain is the number it replaces."""
+    from sgslam_tpu_torch.ops import hamming_search as hs
+    from sgslam_tpu_torch.ops.search_cases import search_args, search_case
+    from sgslam_tpu_torch.utils import timing
+
+    rng = np.random.default_rng(2)
+    kern = hs.hamming_search_kernel
+    entry = None
+    for q, n, lw, mutual in K1S_TIMED:
+        args = search_args(search_case(rng, q, n, edge=False), dev, lw)
+        ms = timing.graph_ms(lambda: kern(*args, mutual=mutual), calls=50)
+        chain_ms = timing.graph_ms(
+            lambda: hs.hamming_search_reference(*args, mutual=mutual),
+            calls=5)
+        dense_ms = hs.search_bound(q, n, mutual, lw is not None)[0]
+        n_cand = (int(hs.candidates(args[1], args[3], args[4]).sum())
+                  if lw is not None else None)
+        bound_ms, bytes_ms, ops_ms = hs.search_bound(q, n, mutual,
+                                                     lw is not None, n_cand)
+        print(f"[time] K1s {q}x{n} {_k1s_label(lw, mutual)}: kernel_ms="
+              f"{ms:.5f} bound_ms={bound_ms:.5f} (bytes {bytes_ms:.5f}, "
+              f"operations {ops_ms:.5f}"
+              + (f": every pair's window test and the {n_cand} candidates' "
+                 f"distances; every pair's distance on the tensor cores "
+                 f"{dense_ms:.5f}" if n_cand is not None else
+                 ": every pair's distance on the tensor cores")
+              + f"); the chain it replaces (K1 + torch masks and "
+              f"reductions) {chain_ms:.5f} ms (device times from CUDA-graph "
+              f"replay)")
+        if entry is None:
+            call_ms = timing.event_ms(lambda: kern(*args, mutual=mutual),
+                                      runs=100)
+            print(f"[time] K1s {q}x{n}: one eager wrapper call between "
+                  f"events: {call_ms:.5f} ms")
+            entry = {"name": "hamming_search", "route": "cuda",
+                     "source": "sgslam_tpu_torch/csrc/hamming_search.cu",
+                     "replaces": "sgslam_tpu/ops/pallas_hamming.py:34",
+                     "launches": 0, "max_abs_err": max_err, "ms": ms,
+                     "plain_ms": chain_ms, "bound_ms": bound_ms,
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes", "library_ms": None}
+    return entry
 
 
 class SegmentInputs:
@@ -636,12 +725,23 @@ def phase_segment(dev, rec: SegmentInputs, launches: int):
 
 
 def _zero_counts():
-    """Set K1's and the segment sum's launch counts to 0 before a path."""
+    """Set K1's, K1s's and the segment sum's launch counts to 0 before a
+    path."""
     from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.ops import hamming_search as hs
     from sgslam_tpu_torch.ops import segment
 
     hc.hamming_kernel.launches = 0
+    hs.hamming_search_kernel.launches = 0
     segment.segment_kernel.launches = 0
+
+
+def _k1s_launches() -> int:
+    """K1s's launches since `_zero_counts`: one per association search on
+    the card."""
+    from sgslam_tpu_torch.ops import hamming_search as hs
+
+    return hs.hamming_search_kernel.launches
 
 
 def _segment_count(path: str, least: int = 1) -> int:
@@ -725,7 +825,6 @@ def phase_main_path(dev, kernels, cfg=None, n_frames=N_FRAMES):
 
     from sgslam_tpu_torch import config
     from sgslam_tpu_torch.io import synthetic
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.slam import tracking
 
     cfg = cfg or config.synthetic_config(640, 480)
@@ -754,8 +853,8 @@ def phase_main_path(dev, kernels, cfg=None, n_frames=N_FRAMES):
             (kf_track_ms if len(timer.passes) > n_pass
              else track_ms).append((t2 - t1) * 1e3)
     run_s = time.perf_counter() - t_run
-    launches = hc.hamming_kernel.launches
-    kernels["hamming_matrix"]["launches"] = launches
+    launches = _k1s_launches()
+    kernels["hamming_search"]["launches"] = launches
     _segment_count("phase 4, Tracker")
 
     tracked = len(tr.n_inliers_hist)
@@ -767,7 +866,7 @@ def phase_main_path(dev, kernels, cfg=None, n_frames=N_FRAMES):
           f"in {run_s:.2f} s: state {tr.state}, {tr.n_kf} keyframes, "
           f"{passes} back-end passes, {tr.compactions} compactions, "
           f"{int(tr.map.pt_valid.sum())} live map points, {tracked} tracked "
-          f"frames, min inliers {min_inl}, ATE {rmse:.5f} m, K1 launches "
+          f"frames, min inliers {min_inl}, ATE {rmse:.5f} m, K1s launches "
           f"{launches} ({launches / max(tracked, 1):.2f}/frame)")
     print(f"[main] per frame (median, synchronized): extract_frame "
           f"{np.median(extract_ms):.3f} ms, track (Tracker.process on "
@@ -788,7 +887,7 @@ def phase_main_path(dev, kernels, cfg=None, n_frames=N_FRAMES):
                              "the first)")
     if launches < 2 * tracked + 2 * passes:
         raise AssertionError(
-            f"K1 launched {launches} times for {tracked} tracked frames and "
+            f"K1s launched {launches} times for {tracked} tracked frames and "
             f"{passes} back-end passes (expected >= 2 each)")
 
 
@@ -813,7 +912,6 @@ def phase_eval_map(dev, runs: int = 3):
     import dataclasses
 
     from sgslam_tpu_torch.io import checkpoint
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.ops import segment
     from sgslam_tpu_torch.slam import tracking
 
@@ -831,7 +929,7 @@ def phase_eval_map(dev, runs: int = 3):
                                                   on_stage=timer))
     torch.cuda.synchronize()
     out = outs[-1]
-    launches = hc.hamming_kernel.launches
+    launches = _k1s_launches()
     seg_launches = segment.segment_kernel.launches
     differ = [f.name for f in dataclasses.fields(out) for o in outs[:-1]
               if not torch.equal(getattr(o, f.name), getattr(out, f.name))]
@@ -856,7 +954,7 @@ def phase_eval_map(dev, runs: int = 3):
     d = d.numpy()
     print(f"[eval-map] keyframe {kf}: {int(m_cpu.kf_valid.sum())} -> "
           f"{int(got.kf_valid.sum())} keyframes, {int(m_cpu.pt_valid.sum())} "
-          f"-> {int(got.pt_valid.sum())} points, K1 launches {launches}, "
+          f"-> {int(got.pt_valid.sum())} points, K1s launches {launches}, "
           f"segment-sum launches {seg_launches} in {runs} passes; the "
           f"passes' maps identical to the bit: {not differ}")
     print(f"[eval-map] back-end pass on the card (CUDA events, median of "
@@ -867,7 +965,7 @@ def phase_eval_map(dev, runs: int = 3):
           f"{np.median(d):.3g} m, p95 {np.percentile(d, 95):.3g} m, max "
           f"{d.max():.3g} m")
     if launches < 2 * runs or seg_launches < runs:
-        raise AssertionError(f"K1 launched {launches} times, the segment "
+        raise AssertionError(f"K1s launched {launches} times, the segment "
                              f"sum {seg_launches} times in {runs} passes")
     if differ:
         raise AssertionError(f"eval map: the card's passes differ in "
@@ -899,7 +997,6 @@ def phase_capacity_pressure(dev, n_frames=LIVE_FRAMES):
     import torch
 
     from sgslam_tpu_torch.io import synthetic
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.slam import tracking
 
     cfg = capacity_config()
@@ -918,15 +1015,15 @@ def phase_capacity_pressure(dev, n_frames=LIVE_FRAMES):
           f"{tr.state}, {tr.n_kf} keyframes into "
           f"{cfg.capacity.max_keyframes} slots, {tr.compactions} "
           f"compactions, {int(tr.map.kf_valid.sum())} live keyframes, "
-          f"{int(tr.map.pt_valid.sum())} live points, ATE {rmse:.5f} m, K1 "
-          f"launches {hc.hamming_kernel.launches}")
+          f"{int(tr.map.pt_valid.sum())} live points, ATE {rmse:.5f} m, K1s "
+          f"launches {_k1s_launches()}")
     if tr.state != "OK" or tr.compactions < 1 or \
             tr.n_kf <= cfg.capacity.max_keyframes:
         raise AssertionError("capacity pressure: compaction did not fire")
     if not rmse < LIVE_ATE_GATE_M:
         raise AssertionError(f"capacity pressure: ATE {rmse:.4f} m")
-    if hc.hamming_kernel.launches < 1:
-        raise AssertionError("capacity pressure: K1 never launched")
+    if _k1s_launches() < 1:
+        raise AssertionError("capacity pressure: K1s never launched")
 
 
 def eval_sequence(name, cfg, dev, n_frames=None):
@@ -965,7 +1062,6 @@ def phase_semantic_system(dev, kernels, cfg=None, n_frames=SEM_FRAMES):
     import torch
 
     from sgslam_tpu_torch import run_eval
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.slam.system import System
 
     cfg = cfg or run_eval._make_cfg(False)
@@ -987,8 +1083,8 @@ def phase_semantic_system(dev, kernels, cfg=None, n_frames=SEM_FRAMES):
             kf_frames.append(i)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = hc.hamming_kernel.launches
-    kernels["hamming_matrix"]["launches"] = launches
+    launches = _k1s_launches()
+    kernels["hamming_search"]["launches"] = launches
     _segment_count("phase 7, semantic System")
 
     tracked = len(s.tracker.n_inliers_hist)
@@ -1011,7 +1107,7 @@ def phase_semantic_system(dev, kernels, cfg=None, n_frames=SEM_FRAMES):
           f"{cfg.camera.height}, 3 walkers, in {run_s:.2f} s: state "
           f"{s.state}, {s.tracker.n_kf} keyframes, {len(backend.passes)} "
           f"back-end passes, person boxes in {person}/{n_frames} frames, "
-          f"ATE {rmse:.5f} m, K1 launches {launches} "
+          f"ATE {rmse:.5f} m, K1s launches {launches} "
           f"({launches / max(tracked, 1):.2f}/tracked frame), occupied "
           f"cells {occupied}, database objects {n_obj}")
     print(f"[semantic] per frame (median, CUDA events, frames without a "
@@ -1034,7 +1130,7 @@ def phase_semantic_system(dev, kernels, cfg=None, n_frames=SEM_FRAMES):
         raise AssertionError(f"person boxes in only {person}/{n_frames} "
                              "frames")
     if launches < 3 * tracked:
-        raise AssertionError(f"K1 launched {launches} times for {tracked} "
+        raise AssertionError(f"K1s launched {launches} times for {tracked} "
                              "tracked frames (expected >= 3 each)")
     if occupied <= MIN_OCCUPIED_CELLS:
         raise AssertionError(f"occupancy map has {occupied} occupied cells")
@@ -1048,7 +1144,6 @@ def phase_semantic_objects(dev, n_frames=OBJ_FRAMES):
 
     from sgslam_tpu_torch.geometry import se3
     from sgslam_tpu_torch.io import synthetic
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.slam.system import System
 
     cfg = objects_config()
@@ -1078,12 +1173,12 @@ def phase_semantic_objects(dev, n_frames=OBJ_FRAMES):
           f"{s.state}, {int(valid.sum())} database objects (classes "
           f"{sorted(clss.tolist())}), nearest same-class object to each "
           f"prop {[round(d, 3) for d in dists]} m, {hits} matched within "
-          f"{OBJ_MATCH_M} m, K1 launches {hc.hamming_kernel.launches}")
+          f"{OBJ_MATCH_M} m, K1s launches {_k1s_launches()}")
     if s.state != "OK" or hits < 1:
         raise AssertionError("semantic objects: no database object matches "
                              "a prop")
-    if hc.hamming_kernel.launches < 1:
-        raise AssertionError("semantic objects: K1 never launched")
+    if _k1s_launches() < 1:
+        raise AssertionError("semantic objects: K1s never launched")
 
 
 def phase_card_vs_cpu(dev, det_frames, pair):
@@ -1197,8 +1292,10 @@ def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
         _zero_counts()
 
     fps, ct, info = bench.run(dev, cfg, warm, timed, before_timed)
-    launches = hc.hamming_kernel.launches
-    kernels["hamming_matrix"]["launches"] = launches
+    launches = _k1s_launches()
+    kernels["hamming_search"]["launches"] = launches
+    k1_launches = hc.hamming_kernel.launches
+    kernels["hamming_matrix"]["launches"] = k1_launches
     seg_launches = segment.segment_kernel.launches
     n = info["frames"]
 
@@ -1216,7 +1313,7 @@ def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
           f"window, {ct.n_kf} live keyframes, loops closed "
           f"{ct.loops_closed - info['loops0']}, relocalizations "
           f"{ct.relocs}, min inliers {min_inl}, ATE {rmse:.5f} m over "
-          f"{len(est)} frames, K1 launches {launches} "
+          f"{len(est)} frames, K1s launches {launches} "
           f"({launches / n:.2f}/frame), segment-sum launches {seg_launches} "
           f"({seg_launches / n:.2f}/frame)")
     print(f"[bench-path] frames/s (bench.py's metric: timed frames over the "
@@ -1234,8 +1331,11 @@ def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
     if not rmse < ATE_GATE_M:
         raise AssertionError(f"bench path: ATE {rmse:.4f} m")
     if launches < 1 or seg_launches < 1:
-        raise AssertionError("bench path: K1 or the segment sum never "
+        raise AssertionError("bench path: K1s or the segment sum never "
                              "launched")
+    if k1_launches:
+        raise AssertionError(f"bench path: K1 launched {k1_launches} times "
+                             "(a search wrote its [Q, N] matrix)")
     return fps, seg_launches
 
 
@@ -1264,7 +1364,6 @@ def phase_loop_closing(dev, cfg=None, n_frames=None, loops=None,
     from sgslam_tpu_torch import run_eval
     from sgslam_tpu_torch.debug_stress import moved_frames
     from sgslam_tpu_torch.io import synthetic
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.optim.global_ba import global_ba_step
 
     cfg = cfg or run_eval._make_cfg(False)
@@ -1308,8 +1407,8 @@ def phase_loop_closing(dev, cfg=None, n_frames=None, loops=None,
         WHOLE_RUN[f"11a System {label}: ATE m, loops"] = [
             round(rmse, 5), len(s.loop.loops_closed)]
         report(f"System (loop closing on), {label}", s.loop, timer, wall,
-               rmse, f"state {s.state}, {s.tracker.n_kf} keyframes, K1 "
-               f"launches {hc.hamming_kernel.launches}, peak memory "
+               rmse, f"state {s.state}, {s.tracker.n_kf} keyframes, K1s "
+               f"launches {_k1s_launches()}, peak memory "
                f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
         _stress_gate("System", label, rmse)
         closed["System"] |= bool(s.loop.loops_closed) and (
@@ -1580,7 +1679,6 @@ def phase_relocalization(dev, moved_seeds=RELOC_MOVED_SEEDS):
 
     from sgslam_tpu_torch.debug_stress import moved_frames
     from sgslam_tpu_torch.io import synthetic
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
 
     cfg = kidnap_config()
     seq = synthetic.SyntheticSequence(
@@ -1612,7 +1710,7 @@ def phase_relocalization(dev, moved_seeds=RELOC_MOVED_SEEDS):
                                  f"{errs}")
     n_ok = sum(b < RELOC_GATE_M for b in best)
     print(f"[reloc] the pose gate (< {RELOC_GATE_M} m) holds on {n_ok} of "
-          f"{len(best)} runs; K1 launches {hc.hamming_kernel.launches}")
+          f"{len(best)} runs; K1s launches {_k1s_launches()}")
     if n_ok < 1:
         raise AssertionError(f"relocalization: the pose gate holds on no "
                              f"run: {best}")
@@ -1630,7 +1728,6 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     from sgslam_tpu_torch.io import synthetic
     from sgslam_tpu_torch.mapping.semantic_mapper import SemanticMapper
     from sgslam_tpu_torch.models.detector import Detector2D
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.ops import orb
     from sgslam_tpu_torch.ops.stereo import stereo_match
     from sgslam_tpu_torch.slam import scan_pipeline
@@ -1657,7 +1754,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     run_eval.drive_system(s, spec, pairs, on_frame)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = hc.hamming_kernel.launches
+    launches = _k1s_launches()
     _segment_count("phase 13a, System.track_stereo")
     rmse = _ate(s.tracker, gt)
     WHOLE_RUN["13 stereo System ATE m"] = round(rmse, 5)
@@ -1678,7 +1775,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
           f"(loop closing on) in {run_s:.2f} s: state {s.state}, "
           f"{s.tracker.n_kf} keyframes, loops closed "
           f"{len(s.loop.loops_closed)}, ATE {rmse:.5f} m (gate "
-          f"{STEREO_GATE_M} m), K1 launches {launches} "
+          f"{STEREO_GATE_M} m), K1s launches {launches} "
           f"({launches / n_frames:.2f}/frame)")
     print(f"[stereo] per frame (median, CUDA events, frames without a "
           f"keyframe): extract_frame_stereo {med['extract']:.3f} ms, track "
@@ -1692,7 +1789,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
         raise AssertionError(f"stereo System: state {s.state}, ATE "
                              f"{rmse:.4f} m")
     if launches < 2 * (n_frames - 1):
-        raise AssertionError(f"stereo System: K1 launched {launches} times")
+        raise AssertionError(f"stereo System: K1s launched {launches} times")
 
     # (b) ChunkedStereoTracker with a loop closer, run_eval's schedule
     ct = run_eval.make_chunked(cfg, spec, None, dev)
@@ -1703,7 +1800,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     run_eval.drive_chunked(ct, pairs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = hc.hamming_kernel.launches
+    launches = _k1s_launches()
     _segment_count("phase 13b, ChunkedStereoTracker")
     rmse = _ate_cw(ct.poses_cw(), gt)
     WHOLE_RUN["13 stereo chunked ATE m"] = round(rmse, 5)
@@ -1711,14 +1808,14 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     print(f"[stereo] ChunkedStereoTracker(chunk={BENCH_CHUNK}, fetch_every="
           f"{BENCH_FETCH}, loop) in {run_s:.2f} s: {ct.n_kf} keyframes, "
           f"loops closed {ct.loops_closed}, lost frames "
-          f"{int(ct.lost_mask().sum())}, ATE {rmse:.5f} m, K1 launches "
+          f"{int(ct.lost_mask().sum())}, ATE {rmse:.5f} m, K1s launches "
           f"{launches} ({launches / n_frames:.2f}/frame); per chunk "
           f"(median): " + ", ".join(f"{k} {v:.3f} ms ({n})"
                                     for k, (v, n) in stages.items()))
     if not rmse < STEREO_GATE_M:
         raise AssertionError(f"chunked stereo: ATE {rmse:.4f} m")
     if launches < 1:
-        raise AssertionError("chunked stereo: K1 never launched")
+        raise AssertionError("chunked stereo: K1s never launched")
 
     # (c) ChunkedSemanticStereoTracker at test_chunked_semantic_stereo's
     # size: 26 dynamic frames at 320x240, chunk 4, fetch 2
@@ -1732,7 +1829,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
         fetch_every=2, device=dev)
     _zero_counts()
     run_eval.drive_chunked(st, spairs)
-    launches = hc.hamming_kernel.launches
+    launches = _k1s_launches()
     _segment_count("phase 13c, ChunkedSemanticStereoTracker")
     est = st.poses_cw()
     rmse = _ate_cw(est, sseq.poses[:len(est)].cpu().numpy())
@@ -1740,7 +1837,7 @@ def phase_stereo(dev, cfg=None, n_frames=STEREO_FRAMES):
     print(f"[stereo] ChunkedSemanticStereoTracker, {len(est)} frames "
           f"{scfg.camera.width}x{scfg.camera.height} with a walking person: "
           f"{st.n_kf} keyframes, median inliers {med_inl}, ATE {rmse:.5f} m "
-          f"(gate {SEM_STEREO_GATE_M} m), K1 launches {launches}")
+          f"(gate {SEM_STEREO_GATE_M} m), K1s launches {launches}")
     if st.n_kf < 2 or not rmse < SEM_STEREO_GATE_M or med_inl < 30:
         raise AssertionError(f"semantic stereo: {st.n_kf} keyframes, ATE "
                              f"{rmse:.4f} m, median inliers {med_inl}")
@@ -1778,7 +1875,6 @@ def phase_mono(dev, cfg=None, n_frames=MONO_FRAMES):
     from sgslam_tpu_torch.geometry import se3
     from sgslam_tpu_torch.geometry.epipolar import draw_ranks
     from sgslam_tpu_torch.io import synthetic
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.optim import initializer
     from sgslam_tpu_torch.slam import mono
     from sgslam_tpu_torch.slam.system import System
@@ -1823,7 +1919,7 @@ def phase_mono(dev, cfg=None, n_frames=MONO_FRAMES):
         mono.initialize_mono = initializer.initialize_mono
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = hc.hamming_kernel.launches
+    launches = _k1s_launches()
     _segment_count("phase 14, System.monocular")
     tr = s.tracker
     n_pts = int(tr.map.pt_valid.sum())
@@ -1878,7 +1974,7 @@ def phase_mono(dev, cfg=None, n_frames=MONO_FRAMES):
           f"initialize_mono call(s), used_H {bool(out['used_H'])}, rh "
           f"{float(out['rh']):.4f}, state {s.state}, {tr.n_kf} keyframes, "
           f"{n_pts} valid points, Sim(3)-aligned ATE {rmse:.5f} m (gate "
-          f"{gate:.4f} m over a {span:.3f} m span), K1 launches {launches} "
+          f"{gate:.4f} m over a {span:.3f} m span), K1s launches {launches} "
           f"({launches / n_frames:.2f}/frame)")
     print(f"[mono] initialize_mono (200 F + 200 H hypotheses): "
           f"{np.median(init_ms):.3f} ms in the run, {alone_ms:.3f} ms alone "
@@ -1898,7 +1994,7 @@ def phase_mono(dev, cfg=None, n_frames=MONO_FRAMES):
     if n_pts <= MONO_MIN_POINTS or not rmse < gate:
         raise AssertionError(f"mono: {n_pts} points, ATE {rmse:.4f} m")
     if launches < 1:
-        raise AssertionError("mono: K1 never launched")
+        raise AssertionError("mono: K1s never launched")
 
 
 # the summary keys of sgslam_tpu/run_tum.py (per frame, chunked)
@@ -1918,7 +2014,6 @@ def phase_cli(dev, n_frames=CLI_FRAMES):
     import tempfile
 
     from sgslam_tpu_torch import run_tum
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
 
     with tempfile.TemporaryDirectory() as tmp:
         seq_dir = os.path.join(tmp, "seq")
@@ -1934,11 +2029,11 @@ def phase_cli(dev, n_frames=CLI_FRAMES):
             wall = time.perf_counter() - t0
             lines = buf.getvalue().strip().splitlines()
             printed = json.loads(lines[-1])
-            launches = hc.hamming_kernel.launches
+            launches = _k1s_launches()
             _segment_count(f"phase 15, run_tum "
                            f"{' '.join(extra) or 'per frame'}")
             print(f"[cli] run_tum {' '.join(argv[:2] + extra)} in "
-                  f"{wall:.2f} s, K1 launches {launches}: {lines[-1]}")
+                  f"{wall:.2f} s, K1s launches {launches}: {lines[-1]}")
             if printed != result or list(printed) != keys:
                 raise AssertionError(f"run_tum summary keys {list(printed)}")
             if printed["frames"] != n_frames or printed["state"] != "OK":
@@ -1947,7 +2042,7 @@ def phase_cli(dev, n_frames=CLI_FRAMES):
                     printed["ate_rmse_m"] < CLI_ATE_GATE_M):
                 raise AssertionError(f"run_tum ATE: {printed}")
             if launches < n_frames:
-                raise AssertionError(f"run_tum: K1 launched {launches} "
+                raise AssertionError(f"run_tum: K1s launched {launches} "
                                      "times: the run did not use the card")
             traj = np.loadtxt(printed["trajectory"])
             if traj.shape != (n_frames, 8) or not np.isfinite(traj).all():
@@ -2108,13 +2203,12 @@ def phase_detector_training(dev, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
 @contextlib.contextmanager
 def launches_per_path():
     """Within the block, run_eval's `_run_system` and `_run_chunked` set
-    K1's and the segment sum's launch counts to 0 before each run and read
-    them after it; yields the list of (path, K1 launches, segment-sum
+    K1s's and the segment sum's launch counts to 0 before each run and read
+    them after it; yields the list of (path, K1s launches, segment-sum
     launches) in the order the paths ran."""
     import torch
 
     from sgslam_tpu_torch import run_eval
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.ops import segment
 
     counts = []
@@ -2124,7 +2218,7 @@ def launches_per_path():
             _zero_counts()
             out = fn(*a, **k)
             torch.cuda.synchronize()
-            counts.append((path, hc.hamming_kernel.launches,
+            counts.append((path, _k1s_launches(),
                            segment.segment_kernel.launches))
             return out
         return run_path
@@ -2143,7 +2237,7 @@ def launches_per_path():
 def phase_eval_suite(dev, name=EVAL_SEQUENCE):
     """`run_eval.main(["--only", name, ...])` at full length: the
     sequence through run_eval's System path and its chunked path, with
-    K1's and the segment sum's counts set to 0 before each path and read
+    K1s's and the segment sum's counts set to 0 before each path and read
     after it. Both paths must pass the row's gate with parity, and each
     must have launched both kernels."""
     from sgslam_tpu_torch import run_eval
@@ -2157,7 +2251,7 @@ def phase_eval_suite(dev, name=EVAL_SEQUENCE):
     sy, ch = row["system"], row["chunked"]
     WHOLE_RUN["18 ATE m (System, chunked)"] = [round(sy["ate"], 5),
                                                round(ch["ate"], 5)]
-    WHOLE_RUN["18 (path, K1, S launches)"] = counts
+    WHOLE_RUN["18 (path, K1s, S launches)"] = counts
     print(f"[eval] run_eval.main({argv}) in {wall:.1f} s on "
           f"{res['device']['name']} ({res['device']['power_limit']}): "
           f"{row['n_frames']} frames, distortion {row['distortion']}; "
@@ -2165,7 +2259,7 @@ def phase_eval_suite(dev, name=EVAL_SEQUENCE):
           f"state {sy['state']}, {sy['wall_s']} s; chunked ATE "
           f"{ch['ate']:.5f} m, {ch['keyframes']} keyframes, lost frames "
           f"{ch['lost_frames']}, {ch['wall_s']} s; gate {row['gate_ate_m']}"
-          f" m, parity_ok {row['parity_ok']}; (path, K1 launches, "
+          f" m, parity_ok {row['parity_ok']}; (path, K1s launches, "
           f"segment-sum launches): {counts}")
     if not (sy["ate"] < row["gate_ate_m"] and ch["ate"] < row["gate_ate_m"]
             and row["parity_ok"]):
@@ -2174,9 +2268,9 @@ def phase_eval_suite(dev, name=EVAL_SEQUENCE):
                              f"{row['parity_ok']}")
     if [c[0] for c in counts] != ["system", "chunked"]:
         raise AssertionError(f"eval {name}: paths run {counts}")
-    for path, k1, seg in counts:
-        if k1 < 1 or seg < 1:
-            raise AssertionError(f"eval {name}, {path}: K1 launched {k1} "
+    for path, k1s, seg in counts:
+        if k1s < 1 or seg < 1:
+            raise AssertionError(f"eval {name}, {path}: K1s launched {k1s} "
                                  f"times, the segment sum {seg}")
 
 
@@ -2205,16 +2299,15 @@ def _positive(label, x):
                              "number")
 
 
-def _launched(label, k1: bool, seg: bool):
-    """Fail unless K1 / the segment sum launched since `_zero_counts`."""
-    from sgslam_tpu_torch.ops import hamming_cuda as hc
+def _launched(label, k1s: bool, seg: bool):
+    """Fail unless K1s / the segment sum launched since `_zero_counts`."""
     from sgslam_tpu_torch.ops import segment
 
-    got = (hc.hamming_kernel.launches, segment.segment_kernel.launches)
-    print(f"[harness] {label}: K1 launches {got[0]}, segment-sum launches "
+    got = (_k1s_launches(), segment.segment_kernel.launches)
+    print(f"[harness] {label}: K1s launches {got[0]}, segment-sum launches "
           f"{got[1]}")
-    if (k1 and got[0] < 1) or (seg and got[1] < 1):
-        raise AssertionError(f"{label}: K1 / the segment sum launched "
+    if (k1s and got[0] < 1) or (seg and got[1] < 1):
+        raise AssertionError(f"{label}: K1s / the segment sum launched "
                              f"{got} times")
 
 
@@ -2227,7 +2320,7 @@ def phase_harnesses(dev):
     `bench_dist_ba_realmap` at (1,1) only (one card), 4 LM iterations (its
     default). `bench` itself is phase 10. Each output must be well formed:
     its keys, finite positive times, the card's name and power limit, the
-    realmap cost falling; K1 and the segment sum must have launched on
+    realmap cost falling; K1s and the segment sum must have launched on
     each path that runs them (in the spawned ranks of the two distributed
     benches, as their rank 0 reports)."""
     import torch
@@ -2268,7 +2361,7 @@ def phase_harnesses(dev):
     for r in sweep:
         labelled("bench_sweep", r["device"])
         _positive("bench_sweep fps", r["fps"])
-        if r["hamming"] != "k1" or r["min_inliers"] < MIN_INLIERS:
+        if r["hamming"] != "k1s" or r["min_inliers"] < MIN_INLIERS:
             raise AssertionError(f"bench_sweep: {r}")
     _launched("bench_sweep", True, True)
 
@@ -2284,7 +2377,8 @@ def phase_harnesses(dev):
     for key in ("bf16_gemm_tflops", "hbm_stream_gbps"):
         _positive(f"bench_kernels {key}", table["calibration"][key])
     timed = {k: r for k, r in table["kernels"].items() if "ms" in r}
-    if len(timed) != 6 or not any(k.startswith("hamming_k1") for k in timed):
+    if len(timed) != 7 or not all(any(k.startswith(p) for k in timed)
+                                  for p in ("hamming_k1", "hamming_search")):
         raise AssertionError(f"bench_kernels rows: {list(table['kernels'])}")
     for k, r in timed.items():
         _positive(f"bench_kernels {k}", r["ms"])
@@ -2394,24 +2488,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
 
-    from sgslam_tpu_torch import config
     from sgslam_tpu_torch.utils import timing
 
     t_start = time.perf_counter()
-    from sgslam_tpu_torch import run_eval
-
-    shapes = k1_shapes([config.synthetic_config(640, 480), eval_config(),
-                        capacity_config(), run_eval._make_cfg(False),
-                        objects_config(), kidnap_config(), mono_config()])
-    popc = phase_build()
+    cfgs = path_configs()
+    shapes, cases = k1_shapes(cfgs), k1s_cases(cfgs)
+    phase_build()
     from sgslam_tpu_torch.ops import segment
 
     rec = SegmentInputs(segment.segment_kernel)
     segment.segment_kernel = rec     # every phase's sums recorded
     max_err = phase_k1_parity(dev, rng, shapes)
-    rate = phase_popc_rate(dev, popc)
-    kernels = {"hamming_matrix": phase_k1_time(dev, rng, rate, max_err,
-                                               shapes)}
+    max_err_s = phase_k1s_parity(dev, cases)
+    kernels = {"hamming_matrix": phase_k1_time(dev, rng, max_err, shapes),
+               "hamming_search": phase_k1s_time(dev, max_err_s)}
 
     def run(phase, fn, *args):
         rec.phase = phase
@@ -2436,7 +2526,8 @@ def main() -> int:
     run("19", phase_harnesses)
     rec.phase = "-"
     kernels["segment_sum"] = phase_segment(dev, rec, seg_launches)
-    if any(k["launches"] < 1 for k in kernels.values()):
+    if any(k["launches"] < 1 for name, k in kernels.items()
+           if name != "hamming_matrix"):      # K1: held and timed, off path
         raise AssertionError("a kernel of the path was never launched")
     if "jax" in sys.modules or "sgslam_tpu" in sys.modules:
         raise AssertionError("the port imported JAX or the JAX package")

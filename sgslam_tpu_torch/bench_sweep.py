@@ -16,11 +16,12 @@ carry fed back), each 10 times after one untimed call, as the median per
 call (CUDA events on the card, the host clock on the CPU; the reference
 took the mean of 10 calls back to back).
 
-The reference's `SGSLAM_HAMMING` switch is not ported: the port has one
-formulation of the Hamming matrix on the card, K1 (`csrc/hamming.cu`), and
-each row says so (`"hamming": "k1"`; `"plain"` on the CPU). Every line
-carries the card's name and power limit. Without a card and without
-`--cpu` it exits non-zero and prints no result.
+The reference's `SGSLAM_HAMMING` switch is not ported: the port's
+searches have one formulation on the card, the fused search K1s
+(`csrc/hamming_search.cu`), and each row says so (`"hamming": "k1s"`;
+`"plain"` on the CPU). Every line carries the card's name and power
+limit. Without a card and without `--cpu` it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -144,7 +145,7 @@ def main(argv=None) -> int:
             print(json.dumps({
                 "chunk": chunk, "depth": depth, "fps": fps,
                 "min_inliers": int(min_inl),
-                "hamming": "k1" if dev.type == "cuda" else "plain",
+                "hamming": "k1s" if dev.type == "cuda" else "plain",
                 "device": label}), flush=True)
     return 0
 

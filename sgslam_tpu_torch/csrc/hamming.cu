@@ -9,18 +9,20 @@
 // a: [n, 8] int32, b: [m, 8] int32 (the uint32 words, bit-cast), row-major,
 // 32 bytes per descriptor, no padding; out: [n, m] int32, row-major.
 //
-// What bounds it on an H100 SXM at the main path's 4096 x 1024:
+// What bounds it on an H100 SXM at 4096 x 1024:
 //   * bytes: the int32 output is 4096 * 1024 * 4 = 16.8 MB; the inputs add
-//     0.16 MB. At 3.35 TB/s that is about 5.0 us.
-//   * operations: 4096 * 1024 * 8 = 33.5 M popc (plus as many XORs and
-//     adds). Compute capability 9.0 issues 16 popc per clock per SM: at
-//     132 SMs and 1.98 GHz, 4.18e12/s, so 33.5e6 / 4.18e12 = 8.0 us.
-//     (csrc/popc_bench.cu, run by chip_smoke.py on an H100 SXM at 700 W,
-//     reaches 15.5 per clock per SM; the bound takes the higher rate.)
-//     Popc issue, not memory, is the bound, by a small margin.
+//     0.16 MB. At 3.35 TB/s that is about 5.06 us.
+//   * operations: by the route the card runs fastest, |a| + |b| -
+//     2 <bits_a, bits_b> on the tensor cores (the JAX package's
+//     `hamming_matrix_mxu`), 2 * 4096 * 1024 * 256 int8 operations at
+//     1,979 TOP/s, 1.09 us. This kernel's own route, 33.5 M popc at the
+//     documented 16 per clock per SM, takes 8.0 us.
+//   So the output's bytes bound it (ops/hamming_cuda.hamming_bound).
 //
 // Measured on an H100 SXM (700 W) by chip_smoke.py: 11.2 us per call at
-// 4096 x 1024 (CUDA-graph replay), 1.40x that bound.
+// 4096 x 1024 (CUDA-graph replay), 45% of that bound. No search of the
+// port runs it since the fused search (csrc/hamming_search.cu) took its
+// place; it stays as the counterpart of `_hamming_kernel`.
 //
 // Design: a block of 32 x 8 threads owns a 64-row x 128-column output
 // tile. The tile's 64 A descriptors are staged once in shared memory and

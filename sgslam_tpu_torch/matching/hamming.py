@@ -12,8 +12,7 @@ import torch
 
 from ..ops.hamming_cuda import _popcount32
 from ..ops.hamming_cuda import hamming_matrix  # noqa: F401  (re-export)
-
-MAX_DIST = 256
+from ..ops.hamming_search import MAX_DIST, _second_min
 
 
 def hamming_pairs(a, b):
@@ -36,10 +35,3 @@ def masked_best_two(dist, row_mask, col_mask):
     best = torch.gather(d, 1, best_idx[:, None])[:, 0]
     second = _second_min(d, best_idx)
     return best_idx, best, second
-
-
-def _second_min(d, best_idx):
-    """Row minimum of d with the entry at best_idx replaced by MAX_DIST."""
-    d2 = d.clone()
-    d2[torch.arange(d.shape[0], device=d.device), best_idx] = MAX_DIST
-    return torch.amin(d2, dim=1)

@@ -5,6 +5,12 @@ distance matrix with the spatial window, level window, threshold, ratio
 test and rotation-consistency histogram applied as masks. Ties resolve to the lowest index,
 as `jnp.argmin` resolves them. Match tables are (idx [N], ok [N] bool,
 dist [N]) mapping query rows to train rows.
+
+The masked matrix and its per-row best two (and, for the mutual check,
+per-column best) come from `ops.hamming_search.hamming_search`: on the
+card one launch of the fused search K1s, which writes no [Q,N] matrix; on
+the CPU the plain torch chain. The thresholds, the ratio test and the
+mutual check run here on [Q] vectors.
 """
 
 from __future__ import annotations
@@ -13,7 +19,8 @@ import torch
 
 from ..config import MatcherConfig
 from ..ops.orb import topk_stable
-from .hamming import MAX_DIST, _second_min, hamming_matrix
+from ..ops.hamming_search import Window, hamming_search
+from .hamming import MAX_DIST
 
 TWO_PI = 6.283185307179586
 
@@ -44,17 +51,13 @@ def match_by_descriptor(desc_q, valid_q, desc_t, valid_t,
     check. Returns (idx [Nq], ok [Nq], dist [Nq])."""
     max_dist = cfg.th_low if max_dist is None else max_dist
     ratio = cfg.nn_ratio if ratio is None else ratio
-    d = hamming_matrix(desc_q, desc_t)
-    dm = torch.where(valid_q[:, None] & valid_t[None, :], d, MAX_DIST)
-    best_idx = torch.argmin(dm, dim=1)
-    best = torch.amin(dm, dim=1)
-    second = _second_min(dm, best_idx)
+    best_idx, best, second, rbest = hamming_search(
+        desc_q, valid_q, desc_t, valid_t, mutual=mutual)
     ok = (best <= max_dist) & (best.to(torch.float32)
                                < ratio * second.to(torch.float32))
-    if mutual:
-        rbest = torch.argmin(dm, dim=0)          # train -> query
-        ok = ok & (rbest[best_idx] == torch.arange(dm.shape[0],
-                                                   device=dm.device))
+    if mutual:                                   # rbest: train -> query
+        ok = ok & (rbest[best_idx] == torch.arange(best.shape[0],
+                                                   device=best.device))
     return best_idx, ok, best
 
 
@@ -69,22 +72,12 @@ def search_by_projection(proj_uv, radii, pred_level, desc_q, valid_q,
     desc_q: [Q,8]; feat_*: frame arrays [N].
     Returns (idx [Q], ok [Q], dist [Q]).
     """
-    lv_scale = scale_factor ** pred_level.to(torch.float32)
-    r = (radii * lv_scale)[:, None]                       # [Q,1]
-    du = feat_xy[None, :, 0] - proj_uv[:, None, 0]
-    dv = feat_xy[None, :, 1] - proj_uv[:, None, 1]
-    in_window = (torch.abs(du) <= r) & (torch.abs(dv) <= r)
-    in_level = (torch.abs(feat_level[None, :] - pred_level[:, None])
-                <= level_window)
-    cand = in_window & in_level & feat_valid[None, :] & valid_q[:, None]
-
-    d = hamming_matrix(desc_q, feat_desc)
-    dm = torch.where(cand, d, MAX_DIST)
-    best_idx = torch.argmin(dm, dim=1)
-    best = torch.amin(dm, dim=1)
+    r = radii * scale_factor ** pred_level.to(torch.float32)      # [Q]
+    best_idx, best, second, _ = hamming_search(
+        desc_q, valid_q, feat_desc, feat_valid,
+        Window(proj_uv, r, pred_level, feat_xy, feat_level, level_window))
     ok = best <= max_dist
     if ratio < 1.0:
-        second = _second_min(dm, best_idx)
         ok = ok & (best.to(torch.float32)
                    < ratio * second.to(torch.float32))
     return best_idx, ok, best

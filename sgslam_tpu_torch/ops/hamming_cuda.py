@@ -8,7 +8,9 @@ and bound with ctypes.
 
 `hamming_matrix(a, b)` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. There is no fallback from
-one to the other. `hamming_kernel.launches` counts kernel launches.
+one to the other. `hamming_kernel.launches` counts kernel launches. The
+association searches do not call it on the card: each is one launch of the
+fused search (`ops/hamming_search.py`), whose plain version calls it.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from ..utils.timing import PEAKS, smi
+from ..utils.timing import PEAKS
 
 WORDS = 8
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -63,28 +65,19 @@ def unpack_bits(x):
     bits = (x.to(torch.int64)[:, :, None] >> shifts) & 1
     return bits.reshape(x.shape[0], 256).to(torch.float32)
 
-# Documented popc throughput of compute capability 9.0, per clock per SM.
-POPC_PER_CLK_SM = 16
 
-
-def hamming_bound(n: int, m: int, popc_per_s: float) -> tuple:
-    """(bound ms, bytes ms, popc ms) of one [n,8] x [m,8] distance matrix
+def hamming_bound(n: int, m: int) -> tuple:
+    """(bound ms, bytes ms, ops ms) of one [n,8] x [m,8] distance matrix
     on an H100: both inputs read and the int32 output written once at the
-    published HBM rate, or n * m * 8 popcounts at `popc_per_s`, whichever
-    takes longer."""
+    published HBM rate, or the distances by the route the card runs
+    fastest, |a| + |b| - 2 <bits_a, bits_b> on the tensor cores (the JAX
+    package's production route), as 2 n m 256 int8 operations at the
+    published rate, whichever takes longer."""
     bytes_ms = ((n + m) * WORDS * 4 + n * m * 4) / PEAKS[
         "hbm_bytes_per_s"] * 1e3
-    ops_ms = n * m * WORDS / popc_per_s * 1e3
+    ops_ms = 2 * n * m * WORDS * 32 / PEAKS["int8_ops"] * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
-
-def documented_popc_rate(device) -> float:
-    """popc per second of the card at its maximum SM clock by the
-    documented POPC_PER_CLK_SM (the least rate K1's bound may take)."""
-    dev = torch.device(device)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    max_mhz = float(smi("clocks.max.sm", dev.index or 0).split()[0])
-    return POPC_PER_CLK_SM * sms * max_mhz * 1e6
 
 def build_library(verbose: bool = False, source: Path = _SOURCE) -> Path:
     """Compile a CUDA source of csrc/ (by default hamming.cu), if not

@@ -88,9 +88,9 @@ def xla_trace(logdir: str):
 
 # Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates
 # without sparsity, at the full 700 W power limit): HBM3 bandwidth, float32
-# outside the tensor cores, bf16 on the tensor cores.
+# outside the tensor cores, bf16 and int8 on the tensor cores.
 PEAKS = {"hbm_bytes_per_s": 3.35e12, "fp32_flops": 67e12,
-         "bf16_flops": 989e12}
+         "bf16_flops": 989e12, "int8_ops": 1979e12}
 
 
 def smi(query: str, index: int = 0) -> str:

@@ -15,8 +15,10 @@
   the later problems show that the port draws them in the tool's order;
   `_normal` itself gives the numbers of one draw, bf16 as JAX rounds them.
 - The work counts: hand counts of the port's formulation (the bf16 GEMM,
-  the stream, K1's popc and bytes, the pose graph's LU, the extraction's
-  resize matmuls and per-pixel operations on a 2-level 40x30 pyramid).
+  the stream, K1's tensor-core operations and bytes, the pose graph's LU,
+  the extraction's resize matmuls and per-pixel operations on a 2-level
+  40x30 pyramid); the fused search K1s's row is bound by
+  `ops.hamming_search.search_bound` on its own input.
 - `main(["--cpu", ...])` at a tiny size: the table labelled "cpu", no
   share stated on the CPU, the BA row "not counted", K2's row not ported
   and untimed, one JSON line naming the file.
@@ -35,6 +37,8 @@ from sgslam_tpu.optim import local_ba as jba
 from sgslam_tpu_torch import bench_kernels as bk
 from sgslam_tpu_torch import config
 from sgslam_tpu_torch.ops import hamming_cuda as hc
+from sgslam_tpu_torch.ops import hamming_search as hs
+from sgslam_tpu_torch.ops.search_cases import search_args, search_case
 
 TOL = 1e-5
 TOL_GRAY = 2.5e-3       # tests/test_torch_synthetic.py
@@ -151,7 +155,7 @@ def test_work_counts_are_the_hand_counts():
         "bytes": 3 * 4096 * 4096 * 2}
     assert c["calibration_stream"]["bytes"] == 2 * 64 * 1024 * 1024 * 4
     assert c["hamming_k1_4096x1024"] == {
-        "ops": 4096 * 1024 * 8, "peak": "popc",
+        "ops": 2 * 4096 * 1024 * 256, "peak": "int8_ops",
         "bytes": (4096 + 1024) * 32 + 4096 * 1024 * 4}
     n = 7 * 256
     pg = c["pose_graph_K256_E1024_40it"]
@@ -165,10 +169,26 @@ def test_work_counts_are_the_hand_counts():
         width=40, height=30, orb=config.OrbConfig(n_levels=2))
     assert bk.orb_ops(tiny) == (2 * 25 * 30 * 40 + 2 * 25 * 40 * 33
                                 + (321 + 11 + 1 + 28) * (1200 + 825))
-    b, by = bk.bound_ms(c["hamming_k1_4096x1024"], 4.182e12)
+    # K1 on the tensor-core route: its [n, m] output's bytes bound it
+    b, by = bk.bound_ms(c["hamming_k1_4096x1024"])
+    assert by == "bytes" and b == pytest.approx(
+        ((4096 + 1024) * 32 + 4096 * 1024 * 4) / 3.35e12 * 1e3)
+    assert b == pytest.approx(hc.hamming_bound(4096, 1024)[0])
+    assert 5.05e-3 < b < 5.07e-3
+    # the search's row is bound by what its own input needs, as
+    # ops.hamming_search.search_bound counts it: every pair's window test
+    # and the candidates' distances, below every pair's distance
+    assert "hamming_search_4096x1024" not in c
+    args = search_args(search_case(np.random.default_rng(0), 4096, 1024,
+                                   edge=False), "cpu")
+    b, by, n_cand = bk.search_row_bound(args)
+    assert n_cand == int(hs.candidates(args[1], args[3], args[4]).sum())
+    assert 0 < n_cand < 4096 * 1024 // 100
     assert by == "operations" and b == pytest.approx(
-        4096 * 1024 * 8 / 4.182e12 * 1e3)
-    assert b == pytest.approx(hc.hamming_bound(4096, 1024, 4.182e12)[0])
+        hs.search_bound(4096, 1024, window=True, n_cand=n_cand)[0])
+    assert b == pytest.approx((4096 * 1024 * 7 / 67e12
+                               + 2 * n_cand * 256 / 1979e12) * 1e3)
+    assert b < hs.search_bound(4096, 1024)[0]
 
 
 def test_main_on_the_cpu(monkeypatch, capsys, tmp_path):
@@ -189,7 +209,8 @@ def test_main_on_the_cpu(monkeypatch, capsys, tmp_path):
     rows = table["kernels"]
     assert list(rows) == [
         "orb_extract_160x120_8lvl", "hamming_plain_64x32",
-        "hamming_cdist_64x32", "hamming_mxu_bitmatmul_64x32",
+        "hamming_cdist_64x32", "hamming_search_64x32",
+        "hamming_mxu_bitmatmul_64x32",
         "local_ba_C4_N32_P64_20it_budget", "pose_graph_K8_E16_2it"]
     assert "not_ported" in rows["hamming_mxu_bitmatmul_64x32"]
     assert rows["local_ba_C4_N32_P64_20it_budget"]["work"] == "not counted"

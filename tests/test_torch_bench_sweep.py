@@ -2,7 +2,7 @@
 the CPU at a small size (the room at 320x240, 600 features, chunks of 2).
 
 - `bench_sweep.main(["--cpu", ...])` over 12 frames: one line per (chunk,
-  depth), labelled "cpu", `"hamming": "plain"` (K1 runs only on the
+  depth), labelled "cpu", `"hamming": "plain"` (K1s runs only on the
   card), frames/s positive and tracking kept.
 - `stage_timings` with one run per stage reports the reference's four
   keys, per frame the chunk's time over its frames.

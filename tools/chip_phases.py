@@ -62,7 +62,7 @@ def main() -> int:
         fn = getattr(cs, f"phase_{name}")
         args = [dev]
         if "kernels" in inspect.signature(fn).parameters:
-            args.append({"hamming_matrix": {}})   # the launch count's slot
+            args.append({"hamming_matrix": {}, "hamming_search": {}})
         if a.segments:
             rec.phase = name
         t0 = time.perf_counter()

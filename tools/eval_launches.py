@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The port's accuracy suite with K1's and the segment sum's launches
+"""The port's accuracy suite with K1s's and the segment sum's launches
 counted per sequence and path.
 
     python tools/eval_launches.py [run_eval's arguments]
@@ -8,8 +8,8 @@ Runs `sgslam_tpu_torch.run_eval.main` with the arguments given (the same
 artifact, at `--out`) inside `chip_smoke.launches_per_path`, which sets
 both kernels' launch counts to 0 before each path and reads them after it,
 then prints one JSON line per sequence: both paths' ATE, keyframes and wall
-time beside their K1 and segment-sum launches. Needs the card (the counts
-are the CUDA wrappers').
+time beside their K1s (fused search) and segment-sum launches. Needs the
+card (the counts are the CUDA wrappers').
 """
 
 from __future__ import annotations
@@ -33,11 +33,11 @@ def main(argv=None) -> int:
     runs = iter(counts)
     for name, row in res["sequences"].items():
         line = {"sequence": name, "pass": row["pass"]}
-        for path, k1, seg in (next(runs), next(runs)):
+        for path, k1s, seg in (next(runs), next(runs)):
             r = row[path]
             line[path] = {"ate": round(r["ate"], 5),
                           "keyframes": r["keyframes"],
-                          "wall_s": r["wall_s"], "k1_launches": k1,
+                          "wall_s": r["wall_s"], "k1s_launches": k1s,
                           "segment_sum_launches": seg,
                           "frames": row["n_frames"]}
         print(json.dumps(line), flush=True)

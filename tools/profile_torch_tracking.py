@@ -57,7 +57,7 @@ import chip_smoke  # noqa: E402
 from sgslam_tpu_torch import bench, config, run_eval  # noqa: E402
 from sgslam_tpu_torch.io import checkpoint, synthetic  # noqa: E402
 from sgslam_tpu_torch.mapping.semantic_mapper import SemanticMapper  # noqa: E402
-from sgslam_tpu_torch.ops import hamming_cuda  # noqa: E402
+from sgslam_tpu_torch.ops import hamming_search  # noqa: E402
 from sgslam_tpu_torch.semantic.dynamic import SemanticFrontend  # noqa: E402
 from sgslam_tpu_torch.slam import tracking  # noqa: E402
 from sgslam_tpu_torch.slam.system import System  # noqa: E402
@@ -88,7 +88,7 @@ def _profiled(fn, n_frames):
     rows = _kernel_stats(prof)
     busy_ms = sum(r[2] for r in rows) / 1e3
     launches = sum(r[1] for r in rows)
-    k1_us = sum(r[2] for r in rows if "hamming_kernel" in r[0])
+    k1s_us = sum(r[2] for r in rows if "search_kernel" in r[0])
     dtoh = sum(r[1] for r in rows if "DtoH" in r[0])
     return {
         "dtoh_copies_per_frame": dtoh / n_frames,
@@ -96,7 +96,7 @@ def _profiled(fn, n_frames):
         "device_ms_per_frame": busy_ms / n_frames,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches_per_frame": launches / n_frames,
-        "k1_us_per_frame": k1_us / n_frames,
+        "k1s_us_per_frame": k1s_us / n_frames,
         "top_kernels": [{"name": k[:90], "calls_per_frame": c / n_frames,
                          "us_per_frame": us / n_frames}
                         for k, c, us in rows[:10]],
@@ -107,8 +107,8 @@ def _print_stage(name, r, unit="frame"):
     print(f"[profile] {name}: wall {r['wall_ms_per_frame']:.3f} "
           f"ms/{unit}, device {r['device_ms_per_frame']:.3f} ms/{unit}, "
           f"idle {100 * r['device_idle_share']:.1f}%, "
-          f"{r['kernel_launches_per_frame']:.0f} kernels/{unit}, K1 "
-          f"{r['k1_us_per_frame']:.1f} us/{unit}")
+          f"{r['kernel_launches_per_frame']:.0f} kernels/{unit}, K1s "
+          f"{r['k1s_us_per_frame']:.1f} us/{unit}")
     for k in r["top_kernels"][:5]:
         print(f"    {k['us_per_frame']:9.1f} us/{unit} "
               f"{k['calls_per_frame']:6.1f}x  {k['name']}")
@@ -128,11 +128,11 @@ def profile_system(args, dev) -> int:
     window = frames[start:]
     n = len(window)
 
-    hamming_cuda.hamming_kernel.launches = 0
+    hamming_search.hamming_search_kernel.launches = 0
     kf0 = s.tracker.n_kf
     result = {"whole track_rgbd": _profiled(
         lambda: [s.track_rgbd(g, d, rgb=rgb(g)) for g, d in window], n)}
-    k1_per_frame = hamming_cuda.hamming_kernel.launches / n
+    k1s_per_frame = hamming_search.hamming_search_kernel.launches / n
     keyframes = s.tracker.n_kf - kf0
 
     result["detector"] = _profiled(
@@ -159,18 +159,19 @@ def profile_system(args, dev) -> int:
     out = {"device": smi, "torch": torch.__version__, "window_frames": n,
            "frame_range": [start, args.frames],
            "keyframes_in_window": keyframes,
-           "k1_launches_per_frame": k1_per_frame, "state": s.state,
+           "k1s_launches_per_frame": k1s_per_frame, "state": s.state,
            "stages": result}
     path = args.out or "build/profile_torch_system.json"
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(f"[profile] system window: frames {start}-{args.frames}, "
-          f"{keyframes} keyframes, K1 {k1_per_frame:.2f} launches/frame, "
+          f"{keyframes} keyframes, K1s {k1s_per_frame:.2f} launches/frame, "
           f"state {s.state}")
     for name, r in result.items():
         _print_stage(name, r)
-    print(json.dumps({"device": smi, "k1_launches_per_frame": k1_per_frame}))
+    print(json.dumps({"device": smi,
+                      "k1s_launches_per_frame": k1s_per_frame}))
     return 0
 
 
@@ -182,7 +183,7 @@ def profile_chunk(args, dev) -> int:
         ct.process_chunk(g[c], d[c])
     ct.flush()
     kf0 = ct._next_kf_host
-    hamming_cuda.hamming_kernel.launches = 0
+    hamming_search.hamming_search_kernel.launches = 0
 
     def run():
         for c in range(warm, warm + args.chunks):
@@ -195,7 +196,8 @@ def profile_chunk(args, dev) -> int:
     out = {"device": smi, "torch": torch.__version__, "chunks": args.chunks,
            "frames": n, "keyframes": ct._next_kf_host - kf0,
            "loops_closed": ct.loops_closed,
-           "k1_launches_per_frame": hamming_cuda.hamming_kernel.launches / n,
+           "k1s_launches_per_frame":
+               hamming_search.hamming_search_kernel.launches / n,
            "dtoh_copies_per_chunk": r["dtoh_copies_per_frame"]
            * bench.CHUNK, "profile": r}
     path = args.out or "build/profile_torch_chunk.json"
@@ -204,8 +206,8 @@ def profile_chunk(args, dev) -> int:
         json.dump(out, f, indent=1)
     print(f"[profile] chunked pipeline, {args.chunks} chunks of "
           f"{bench.CHUNK} after {warm} warm chunks: "
-          f"{out['keyframes']} keyframes, K1 "
-          f"{out['k1_launches_per_frame']:.2f} launches/frame, "
+          f"{out['keyframes']} keyframes, K1s "
+          f"{out['k1s_launches_per_frame']:.2f} launches/frame, "
           f"{out['dtoh_copies_per_chunk']:.1f} device-to-host copies/chunk")
     _print_stage("chunked pipeline", r)
     print(json.dumps({"device": smi, "dtoh_copies_per_chunk":
@@ -260,10 +262,11 @@ def main() -> int:
         for f in feats:
             tr.process(None, None, feats=f)
 
-    hamming_cuda.hamming_kernel.launches = 0
+    hamming_search.hamming_search_kernel.launches = 0
     extract = _profiled(run_extract, len(window))
     track = _profiled(run_track, len(window))
-    k1_per_frame = hamming_cuda.hamming_kernel.launches / len(window)
+    k1s_per_frame = (hamming_search.hamming_search_kernel.launches
+                     / len(window))
 
     def backend(cfg_b, m, kf):
         tracking.process_new_keyframe(cfg_b, m, kf)   # first-use set-up
@@ -281,7 +284,7 @@ def main() -> int:
               "repeat_pose_max_abs_diff": repeat_diff,
               "window_frames": len(window), "frame_range": [start,
                                                             args.frames],
-              "k1_launches_per_frame": k1_per_frame,
+              "k1s_launches_per_frame": k1s_per_frame,
               "extract_frame": extract, "track": track,
               "backend_pass_main_map": backend_main,
               "backend_pass_eval_map": backend_eval,
@@ -296,8 +299,8 @@ def main() -> int:
                      "pass" if name.startswith("backend") else "frame")
     print(f"[profile] second pass vs first: poses differ by at most "
           f"{repeat_diff:.3g}")
-    print(json.dumps({"device": smi, "k1_launches_per_frame":
-                      result["k1_launches_per_frame"]}))
+    print(json.dumps({"device": smi, "k1s_launches_per_frame":
+                      result["k1s_launches_per_frame"]}))
     return 0
 
 
