@@ -788,6 +788,26 @@ class StageTimer:
         """[{stage: ms}], one dict per pass (or frame)."""
         return [dict(p) for p in self.ordered()]
 
+    @classmethod
+    def loop_correction(cls, metrics):
+        """A StageTimer fed by a tracer's `loop.*` spans (the tracer is
+        switched on): "begin" as `loop.correct` opens, then after its
+        "essential_graph", "fuse" and each "gba" slice."""
+        timer, inside = cls(), [False]
+
+        def listen(name, opening):
+            if name == "loop.correct":
+                inside[0] = opening
+                if opening:
+                    timer("begin")
+            elif inside[0] and not opening and name in (
+                    "loop.essential_graph", "loop.fuse", "loop.gba"):
+                timer(name[len("loop."):])
+
+        metrics.listeners.append(listen)
+        metrics.start()
+        return timer
+
     def split(self):
         """(median ms of the whole pass, {stage: median ms}) over passes."""
         groups = self.groups()
@@ -1395,8 +1415,7 @@ def phase_loop_closing(dev, cfg=None, n_frames=None, loops=None,
     for label, frames in inputs:
         torch.cuda.reset_peak_memory_stats(dev)
         s = run_eval.make_system(cfg, spec, None, dev)
-        timer = StageTimer()
-        s.loop.on_stage = timer
+        timer = StageTimer.loop_correction(s.metrics)
         _zero_counts()
         t0 = time.perf_counter()
         run_eval.drive_system(s, spec, frames)
@@ -1436,8 +1455,7 @@ def phase_loop_closing(dev, cfg=None, n_frames=None, loops=None,
 
         torch.cuda.reset_peak_memory_stats(dev)
         ct = run_eval.make_chunked(cfg, spec, None, dev)
-        loop, timer = ct.loop, StageTimer()
-        loop.on_stage = timer
+        loop, timer = ct.loop, StageTimer.loop_correction(ct.metrics)
         _zero_counts()
         t0 = time.perf_counter()
         run_eval.drive_chunked(ct, frames)
@@ -1534,8 +1552,7 @@ def phase_forced_loop(dev, cfg=None):
     # System: 86 frames, 1.075 laps, drift after frame 70
     frames, gt = circuit(86, 1.075)
     s = System(cfg, enable_semantic=False, enable_mapping=False, device=dev)
-    timer = StageTimer()
-    s.loop.on_stage = timer
+    timer = StageTimer.loop_correction(s.metrics)
     _zero_counts()
     t0 = time.perf_counter()
     for g, d in frames[:70]:
@@ -1569,11 +1586,10 @@ def phase_forced_loop(dev, cfg=None):
 
     def chunked():
         loop = LoopCloser(cfg, device=dev)
-        timer = StageTimer()
-        loop.on_stage = timer
         ct = scan_pipeline.ChunkedTracker(cfg, chunk=BENCH_CHUNK,
                                           fetch_every=2, loop=loop,
                                           device=dev)
+        timer = StageTimer.loop_correction(ct.metrics)
         _zero_counts()
         t0 = time.perf_counter()
         i = 0

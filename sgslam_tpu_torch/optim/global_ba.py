@@ -3,7 +3,8 @@
 Port of `sgslam_tpu/optim/global_ba.py`: global BA is local BA with the
 window = every keyframe slot and the point budget = the map's capacity
 (`build_ba_problem` -> `bundle_adjust` -> `writeback_ba`), keyframe 0 fixed
-for the gauge, and a slice-at-a-time loop that a host hook can preempt.
+for the gauge, and a slice-at-a-time loop that a host hook can preempt;
+each slice is a `loop.gba` span on the active tracer.
 
 At the default capacity the problem has C = 512 cameras and P = 32768
 points: the point-block buffer of `bundle_adjust` is [C * P, 30] f32 (2.0
@@ -19,6 +20,7 @@ import torch
 from ..config import SlamConfig
 from ..mapstate import local_map as lm
 from ..mapstate.mapstate import MapState
+from ..utils import timing
 from . import local_ba
 
 
@@ -45,18 +47,17 @@ def global_ba_step(cfg: SlamConfig, m: MapState, *, iters: int = 10,
 
 def global_ba_interruptible(cfg: SlamConfig, m: MapState, *, iters: int = 10,
                             slice_iters: int = 2, should_abort=None,
-                            fixed_extra=None, on_slice=None):
+                            fixed_extra=None):
     """Cooperatively cancellable global BA: `slice_iters`-iteration steps
     with the host `should_abort()` hook polled between them; every completed
-    slice is kept. `on_slice()`, if given, is called after each slice (for
-    timing). Returns (map, iterations_completed)."""
+    slice is kept. Returns (map, iterations_completed)."""
+    tr = timing.active()
     done = 0
     while done < iters:
         n = min(slice_iters, iters - done)
-        m = global_ba_step(cfg, m, iters=n, fixed_extra=fixed_extra)
+        with tr.span("loop.gba"):
+            m = global_ba_step(cfg, m, iters=n, fixed_extra=fixed_extra)
         done += n
-        if on_slice is not None:
-            on_slice()
         if should_abort is not None and done < iters and should_abort():
             break
     return m, done

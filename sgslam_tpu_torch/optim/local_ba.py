@@ -21,6 +21,10 @@ What differs from the reference, and why:
     call). The exit rule is the reference's, unchanged. With tol=0 (the
     global BA) the flag is not read: it stays on the device and freezes the
     state once set, so the whole budget runs without a host read.
+
+On the active tracer (`utils/timing.active()`) each LM iteration is a
+`backend.lm_iter` span; `ba.calls` counts the calls and `ba.lm_iters` the
+iterations each phase ran.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 from ..geometry import linalg, se3
 from ..geometry.camera import Camera
 from ..ops.segment import segment_sum
+from ..utils import timing
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -224,11 +229,17 @@ def bundle_adjust(cam: Camera, prob: BAProblem, *, iters1: int = 5,
         stuck = ~improved & (lam >= LAM_MAX)
         return (poses, points, obs_mask, lam_next), improved, rel, stuck
 
+    tr = timing.active()
+    tr.count("ba.calls")
+
     def phase(state, iters, use_huber):
         if tol > 0:
             for _ in range(iters):
-                state, improved, rel, stuck = gn_iter(state, use_huber)
-                if bool((improved & (rel < tol)) | stuck):
+                tr.count("ba.lm_iters")
+                with tr.span("backend.lm_iter"):
+                    state, improved, rel, stuck = gn_iter(state, use_huber)
+                    exit_now = bool((improved & (rel < tol)) | stuck)
+                if exit_now:
                     break
             return state
         # tol=0 (global BA) runs its whole budget: the exit flag stays on
@@ -236,9 +247,12 @@ def bundle_adjust(cam: Camera, prob: BAProblem, *, iters1: int = 5,
         # while_loop would have stopped there
         done = torch.zeros((), dtype=torch.bool, device=dev)
         for _ in range(iters):
-            new, improved, rel, stuck = gn_iter(state, use_huber)
-            state = tuple(torch.where(done, a, b) for a, b in zip(state, new))
-            done = done | (improved & (rel < tol)) | stuck
+            tr.count("ba.lm_iters")
+            with tr.span("backend.lm_iter"):
+                new, improved, rel, stuck = gn_iter(state, use_huber)
+                state = tuple(torch.where(done, a, b)
+                              for a, b in zip(state, new))
+                done = done | (improved & (rel < tol)) | stuck
         return state
 
     obs_valid = prob.obs_w > 0

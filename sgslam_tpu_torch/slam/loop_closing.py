@@ -26,8 +26,10 @@ Deferred mode (the chunked runner's): a keyframe's candidates are copied
 to pinned host memory with a `non_blocking` copy recorded by an event, and
 inspected at the next keyframe, which waits on that event only.
 
-`on_stage(name)`, if set, is called with "begin" when a loop is accepted
-and after "essential_graph", "fuse" and each "gba" slice (for timing).
+Spans on the active tracer (`utils/timing.active()`): `loop.detect` per
+keyframe (and per `flush`), holding `loop.correct` when a loop is
+accepted, which holds `loop.essential_graph`, `loop.fuse` and the global
+BA's `loop.gba` slices.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..ops.orb import topk_stable
 from ..optim import pose_graph, sim3
 from ..optim.global_ba import global_ba_interruptible
 from ..optim.pnp import ransac_pnp
+from ..utils import timing
 
 
 def _bow_of_kf(vocab, desc, valid):
@@ -208,11 +211,6 @@ class LoopCloser:
         self.last_gba_iters = 0
         self.gba_remaining = 0
         self._gba_fixed = None      # [K] bool loop-pair pin, or None
-        self.on_stage = None
-
-    def _mark(self, name: str):
-        if self.on_stage is not None:
-            self.on_stage(name)
 
     def _tensor(self, x, dtype):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -251,6 +249,10 @@ class LoopCloser:
         """Update the database; returns a corrected map if a loop closes
         (in deferred mode, the correction triggered by the previous
         keyframe's candidates), else None."""
+        with timing.active().span("loop.detect"):
+            return self._on_keyframe(m, kf_id)
+
+    def _on_keyframe(self, m: ms.MapState, kf_id: int):
         corrected = None
         if self._deferred_det is not None:
             corrected = self._inspect(m, *self._deferred_det)
@@ -269,7 +271,8 @@ class LoopCloser:
         """Resolve a deferred detection (sequence end / drain idle)."""
         if self._deferred_det is None:
             return None
-        out = self._inspect(m, *self._deferred_det)
+        with timing.active().span("loop.detect"):
+            out = self._inspect(m, *self._deferred_det)
         self._deferred_det = None
         return out
 
@@ -299,8 +302,9 @@ class LoopCloser:
 
         self.loops_closed.append((int(kf_id), int(hit)))
         self._consistency = {}
-        corrected, sim_opt = self._correct(m, kf_id, hit, S_ab,
-                                           ms.covisibility(m))
+        with timing.active().span("loop.correct"):
+            corrected, sim_opt = self._correct(m, kf_id, hit, S_ab,
+                                               ms.covisibility(m))
         # persist the loop constraint as established, scale included
         self.loop_edges.append((int(kf_id), int(hit), se3.sim3_compose(
             sim_opt[kf_id], se3.sim3_inverse(sim_opt[hit])).cpu().numpy()))
@@ -383,69 +387,73 @@ class LoopCloser:
                  cov):
         """Essential graph -> duplicate fusion -> pinned global BA
         (CorrectLoop). Returns (corrected map, optimized Sim3 poses [K,8])."""
-        self._mark("begin")
+        tr = timing.active()
         K = m.max_kf
-        dev = m.device
-        old_poses = m.kf_pose
-        sim_poses = torch.cat([old_poses, torch.ones_like(old_poses[:, :1])],
-                              1)
-        nkf = int(m.next_kf)
-        kf_valid = m.kf_valid.cpu().numpy()
-        cov_np = cov.cpu().numpy()
+        with tr.span("loop.essential_graph"):
+            dev = m.device
+            old_poses = m.kf_pose
+            sim_poses = torch.cat(
+                [old_poses, torch.ones_like(old_poses[:, :1])], 1)
+            nkf = int(m.next_kf)
+            kf_valid = m.kf_valid.cpu().numpy()
+            cov_np = cov.cpu().numpy()
 
-        # covisibility spanning tree: parent = the earlier keyframe sharing
-        # the most observations, else the nearest earlier valid slot
-        parent = np.full(K, -1, np.int64)
-        prev_valid = -1
-        for k in range(nkf):
-            if not kf_valid[k]:
-                continue
-            if prev_valid >= 0:
-                w = cov_np[k, :k].copy()
-                w[~kf_valid[:k]] = 0.0
-                best = int(np.argmax(w)) if w.size else 0
-                parent[k] = best if w.size and w[best] > 0 else prev_valid
-            prev_valid = k
+            # covisibility spanning tree: parent = the earlier keyframe
+            # sharing the most observations, else the nearest earlier slot
+            parent = np.full(K, -1, np.int64)
+            prev_valid = -1
+            for k in range(nkf):
+                if not kf_valid[k]:
+                    continue
+                if prev_valid >= 0:
+                    w = cov_np[k, :k].copy()
+                    w[~kf_valid[:k]] = 0.0
+                    best = int(np.argmax(w)) if w.size else 0
+                    parent[k] = (best if w.size and w[best] > 0
+                                 else prev_valid)
+                prev_valid = k
 
-        li, lj = [int(kf_cur)], [int(kf_loop)]
-        lmeas = [S_cur_loop.cpu().numpy()]
-        for pi, pj, pmeas in self.loop_edges:
-            if pi < 0 or pj < 0 or not (kf_valid[pi] and kf_valid[pj]):
-                continue
-            li.append(pi)
-            lj.append(pj)
-            lmeas.append(np.asarray(pmeas))
-        ei, ej, meas, ew = pose_graph.build_essential_edges(
-            cov_np, sim_poses.cpu().numpy(), parent, np.asarray(li),
-            np.asarray(lj), lmeas, min_covis_weight=100.0, max_edges=4 * K,
-            device=dev)
+            li, lj = [int(kf_cur)], [int(kf_loop)]
+            lmeas = [S_cur_loop.cpu().numpy()]
+            for pi, pj, pmeas in self.loop_edges:
+                if pi < 0 or pj < 0 or not (kf_valid[pi] and kf_valid[pj]):
+                    continue
+                li.append(pi)
+                lj.append(pj)
+                lmeas.append(np.asarray(pmeas))
+            ei, ej, meas, ew = pose_graph.build_essential_edges(
+                cov_np, sim_poses.cpu().numpy(), parent, np.asarray(li),
+                np.asarray(lj), lmeas, min_covis_weight=100.0,
+                max_edges=4 * K, device=dev)
 
-        valid = np.zeros(K, bool)
-        valid[:nkf] = kf_valid[:nkf]
-        fixed = np.zeros(K, bool)
-        fixed[kf_loop] = True
-        opt = pose_graph.optimize_pose_graph(
-            sim_poses, self._tensor(valid, torch.bool),
-            self._tensor(fixed, torch.bool), ei, ej, meas, ew, iters=40,
-            fix_scale=self.fix_scale)
-        new_poses = se3.se3_make(se3.quat_normalize(opt[:, :4]), opt[:, 4:7])
-        sim_opt = torch.cat([new_poses, opt[:, 7:8]], 1)
-        m = _apply_correction(m, old_poses, new_poses)
-        self._mark("essential_graph")
+            valid = np.zeros(K, bool)
+            valid[:nkf] = kf_valid[:nkf]
+            fixed = np.zeros(K, bool)
+            fixed[kf_loop] = True
+            opt = pose_graph.optimize_pose_graph(
+                sim_poses, self._tensor(valid, torch.bool),
+                self._tensor(fixed, torch.bool), ei, ej, meas, ew, iters=40,
+                fix_scale=self.fix_scale)
+            new_poses = se3.se3_make(se3.quat_normalize(opt[:, :4]),
+                                     opt[:, 4:7])
+            sim_opt = torch.cat([new_poses, opt[:, 7:8]], 1)
+            m = _apply_correction(m, old_poses, new_poses)
 
         # post-correction duplicate fusion (SearchAndFuse) in the current
         # keyframe, its predecessor and every keyframe inserted after it,
         # with a wide radius: the duplicated revisit structure can sit tens
         # of pixels from its original right after the correction
-        prev = int(mt.prev_valid_kf(m, kf_cur))
-        fuse_slots = [prev] if prev >= 0 else []
-        kf_valid_now = m.kf_valid.cpu().numpy()
-        fuse_slots += [k for k in range(kf_cur, nkf) if kf_valid_now[k]]
-        for k in fuse_slots[:12]:
-            m = mt.fuse_duplicates(
-                self.cfg.camera, m, k, scale_factor=self.cfg.orb.scale_factor,
-                max_candidates=self.cfg.capacity.local_points, radius=6.0)
-        self._mark("fuse")
+        with tr.span("loop.fuse"):
+            prev = int(mt.prev_valid_kf(m, kf_cur))
+            fuse_slots = [prev] if prev >= 0 else []
+            kf_valid_now = m.kf_valid.cpu().numpy()
+            fuse_slots += [k for k in range(kf_cur, nkf) if kf_valid_now[k]]
+            for k in fuse_slots[:12]:
+                m = mt.fuse_duplicates(
+                    self.cfg.camera, m, k,
+                    scale_factor=self.cfg.orb.scale_factor,
+                    max_candidates=self.cfg.capacity.local_points,
+                    radius=6.0)
 
         # full-map BA with the verified loop pair pinned on top of the
         # keyframe-0 gauge; the first 10 iterations always complete, only
@@ -457,14 +465,12 @@ class LoopCloser:
             self._gba_fixed = fixed_extra
             total = self.cfg.loop.global_ba_iters
             base = min(10, total)
-            slice_mark = lambda: self._mark("gba")   # noqa: E731
             m, done1 = global_ba_interruptible(
-                self.cfg, m, iters=base, fixed_extra=self._gba_fixed,
-                on_slice=slice_mark)
+                self.cfg, m, iters=base, fixed_extra=self._gba_fixed)
             m, done2 = global_ba_interruptible(
                 self.cfg, m, iters=total - base,
                 should_abort=self.should_abort_gba,
-                fixed_extra=self._gba_fixed, on_slice=slice_mark)
+                fixed_extra=self._gba_fixed)
             self.last_gba_iters = done1 + done2
             self.gba_remaining = total - self.last_gba_iters
         return m, sim_opt

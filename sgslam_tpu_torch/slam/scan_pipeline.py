@@ -9,7 +9,7 @@ over its TPU tunnel. Here a chunk is a Python function around the same
 stages:
   * the detector runs once over the chunk's frames (`Detector2D.
     detect_batch`); extraction and the dynamic-feature cull run frame by
-    frame (one K1 launch per frame for the frame-to-frame matches);
+    frame (one K1s launch per frame for the frame-to-frame matches);
   * the scan is a Python loop over the frames that reads nothing back:
     `track_step` runs with its brute-force fallback left out
     (`fallback="skip"`), and the scan runs again with the fallback
@@ -25,22 +25,37 @@ stages:
     host memory with a `non_blocking` copy when the chunk is queued, and
     read once per drain (every `fetch_every` chunks).
 
-Host reads per chunk, in order:
-  1. (flag, index, fallback wanted) after pass 1 — always; a second one if
-     the pass ran again with the fallback;
-  2. if a keyframe is flagged: the slot (next_kf, read here and again in
-     `insert_keyframe`), then the
-     back-end pass's own reads (`process_new_keyframe`: the previous valid
-     keyframe, the valid-keyframe count, one exit flag per local-BA
-     iteration, at most iters1 + iters2), then the re-track's (flag,
-     index, fallback wanted) read(s);
-  3. if the re-track flags a second keyframe: its insertion and back-end
-     reads as in 2;
-  4. at a drain: one wait for the last chunk's packed copy; loop closing
-     and relocalization then read what their host logic needs (keyframe
-     database candidates via an event-recorded pinned copy, match counts
-     of verification, the essential graph's inputs).
-CUDA graphs over a chunk are blocked by 1-3 (ROADMAP, performance queue).
+Host waits per chunk of 4, as measured: the synchronising CUDA runtime
+calls inside the tracer's spans (`benchmark/spans.py`), 25.2-25.8 a frame
+on the benchmark's `chunked.slow_walker` cell at 640x480 on an H100,
+with the source lines from torch's sync debug mode. In order:
+  1. `runner.chunk` (3.2): the upload of the chunk's grays and depths from
+     pageable host memory (`tracking._as_tensor`), and after the scans the
+     stats row of the packed result (`torch.tensor([...])` into a device
+     tensor) and, with a keyframe, its `is_kf` write;
+  2. `front_end.extract` (64, two thirds of all): two constants copied to
+     the device per pyramid level of every frame, the FAST threshold
+     (`ops/fast.py`, `fast_score_map`) and the rBRIEF pattern
+     (`ops/orb.py`, `_descriptors`);
+  3. `semantic.detector` (1): the box scale (`models/detector.py`);
+  4. `semantic.cull` (24): per frame the two constants of
+     `geometry/epipolar.py` (`_smallest_eigvec3`, `eight_point`) and four
+     calls that the sync debug mode does not flag;
+  5. `tracking.scan` (1.2): (flag, index, fallback wanted) after each
+     pass, a second pass only where a frame wanted the fallback;
+  6. a keyframe (`backend.insert`, 7% of the frames; 29 a keyframe): the
+     slot (next_kf, read here and again in `insert_keyframe`), host values
+     written into device tensors (`mapstate.py`), the previous valid
+     keyframe, the valid-keyframe count, local BA's damping and one exit
+     flag per LM iteration (20 of 20 in every call measured: the early
+     exit did not fire), then the re-track's read(s); a second keyframe
+     as the first;
+  7. `runner.drain` (1): one event wait per chunk drained (the first one
+     blocks, the rest find their copy done); loop closing then reads the
+     keyframe database and what its host logic needs (`loop.detect`, 1.2),
+     and relocalization its candidates.
+CUDA graphs over a chunk are blocked by all seven (ROADMAP, performance
+queue); 2-4 are constants that could be made once.
 
 The per-frame F-RANSAC draws come from `keys` (`split` of the carry's key
 into chunk + 1 keys per chunk, `seed(7)` at bootstrap and `seed(b0)` in the
@@ -70,9 +85,17 @@ from ..mapstate import mapstate as ms
 from ..ops.orb import Features
 from ..semantic import dynamic as dyn_mod
 from ..semantic.dynamic import Boxes
+from ..utils import timing
 from . import tracking
 from .loop_closing import _finish_fetch, _start_fetch
 from .tracking import _as_tensor
+
+# the attributes of a `tracking.scan` span: its pass and whether the
+# brute-force fallback was selected (built once, so a span allocates none)
+SCAN_ATTRS = {(p, f): {"pass": p, "fallback": f == "device"}
+              for p in ("track", "retrack1", "retrack2")
+              for f in ("skip", "device")}
+
 
 class GeneratorKeys:
     """The default F-RANSAC keys of a chunk: integer seeds, split on the
@@ -147,7 +170,12 @@ def make_track_chunk(cfg: SlamConfig, detector=None, semantic: bool = False,
     packages the same features). `on_stage(name)`, if given, is
     called with "begin" and after "extract", "detector", "cull", "track"
     and each insertion round's "insert1", "retrack1", "insert2",
-    "retrack2" (for timing). stereo=True reads (grays, depths) as the
+    "retrack2" (for timing), each at the closing edge of the stage's span
+    on the active tracer (`front_end.extract`, `semantic.detector`,
+    `semantic.cull`, a `tracking.scan` per scan pass with a
+    `tracking.step` per frame, `backend.insert`); the tracer counts
+    `tracking.scans` and `tracking.rescans` (passes run again with the
+    fallback). stereo=True reads (grays, depths) as the
     rectified (left, right) pairs and extracts with
     `tracking.extract_frame_stereo` (depth from the SAD search)."""
     dev = resolve_device(device)
@@ -160,37 +188,45 @@ def make_track_chunk(cfg: SlamConfig, detector=None, semantic: bool = False,
                           else tracking.extract_frame)
 
     def chunk_fn(m, carry: TrackCarry, grays, depths, n_live=None):
+        tr = timing.active()
         grays = _as_tensor(grays, dev).to(torch.float32)
         depths = _as_tensor(depths, dev).to(torch.float32)
         n = grays.shape[0]
         n_live = n if n_live is None else int(n_live)
         mark("begin")
-        feats = [extract(cfg, grays[j], depths[j], dev) for j in range(n)]
+        with tr.span("front_end.extract"):
+            feats = [extract(cfg, grays[j], depths[j], dev)
+                     for j in range(n)]
         mark("extract")
-        if detector is not None:
-            cull_b, dyn_b, obj_b = detector.detect_batch(grays, W, H)
-        else:
-            e = Boxes.empty(B, dev)
-            cull_b = dyn_b = obj_b = _stack([e] * n)
+        with tr.span("semantic.detector"):
+            if detector is not None:
+                cull_b, dyn_b, obj_b = detector.detect_batch(grays, W, H)
+            else:
+                e = Boxes.empty(B, dev)
+                cull_b = dyn_b = obj_b = _stack([e] * n)
         mark("detector")
 
-        if semantic:
-            sub = keys.split(carry.key, n + 1)
-            culled, prev_f, prev_b = [], carry.prev_feats, carry.prev_boxes
-            for j in range(n):
-                prev_xy, status = dyn_mod.match_prev_frame(
-                    cfg.matcher, cfg.orb.scale_factor, feats[j],
-                    prev_f.xy_raw, prev_f.level, prev_f.angle, prev_f.desc,
-                    prev_f.valid, radius=cfg.dynamic.match_radius)
-                keep, _, _ = dyn_mod.reject_dynamic_matched(
-                    cfg.dynamic, feats[j].xy_raw, feats[j].valid, prev_xy,
-                    status, _select(cull_b, j), prev_b,
-                    lambda nv, it, kj=sub[j + 1]: keys.draw(kj, nv, it, 8))
-                culled.append(dyn_mod.apply_keep_mask(feats[j], keep))
-                prev_f, prev_b = feats[j], _select(dyn_b, j)
-            new_key = sub[0]
-        else:
-            culled, new_key = feats, carry.key
+        with tr.span("semantic.cull"):
+            if semantic:
+                sub = keys.split(carry.key, n + 1)
+                culled = []
+                prev_f, prev_b = carry.prev_feats, carry.prev_boxes
+                for j in range(n):
+                    prev_xy, status = dyn_mod.match_prev_frame(
+                        cfg.matcher, cfg.orb.scale_factor, feats[j],
+                        prev_f.xy_raw, prev_f.level, prev_f.angle,
+                        prev_f.desc, prev_f.valid,
+                        radius=cfg.dynamic.match_radius)
+                    keep, _, _ = dyn_mod.reject_dynamic_matched(
+                        cfg.dynamic, feats[j].xy_raw, feats[j].valid,
+                        prev_xy, status, _select(cull_b, j), prev_b,
+                        lambda nv, it, kj=sub[j + 1]: keys.draw(kj, nv, it,
+                                                                8))
+                    culled.append(dyn_mod.apply_keep_mask(feats[j], keep))
+                    prev_f, prev_b = feats[j], _select(dyn_b, j)
+                new_key = sub[0]
+            else:
+                culled, new_key = feats, carry.key
         mark("cull")
 
         def step(mm, c, j, allow_kf: bool, fallback: str):
@@ -221,51 +257,61 @@ def make_track_chunk(cfg: SlamConfig, detector=None, semantic: bool = False,
             for j in range(start):
                 outs[3][j] = torch.zeros_like(outs[3][j])
             for j in range(start, n):
-                c, out = step(mm, c, j, allow_kf, fallback)
+                with tr.span("tracking.step", rid=carry.frame_id + j,
+                             frames=1):
+                    c, out = step(mm, c, j, allow_kf, fallback)
                 for o, v in zip(outs, out):
                     o[j] = v
             return c, outs
 
-        def tracked(mm, c, start, outs, allow_kf: bool):
+        def tracked(mm, c, start, outs, allow_kf: bool, name: str):
             """The scan of frames start..n-1 with `track_step`'s fallback
             left out, then one host read of (any keyframe flag, the first
             flagged index, any frame that wanted the fallback). Where a
             frame wanted it, the scan runs again with the fallback selected
             on the device (the reference's `lax.cond`), and is read again.
-            Returns (carry, outs, flag, index)."""
+            Each pass is a `tracking.scan` span of pass `name`. Returns
+            (carry, outs, flag, index)."""
             for fallback in ("skip", "device"):
-                c_out, o = scan(mm, c, start, outs, allow_kf, fallback)
-                need = torch.stack(o[3]).to(torch.int32)
-                no = torch.zeros((), dtype=torch.bool, device=dev)
-                wanted = torch.stack(o[5][start:] or [no]).any().to(
-                    torch.int32)
-                flag, idx, again = torch.stack(
-                    [need.max(), torch.argmax(need), wanted]).tolist()
+                tr.count("tracking.scans")
+                if fallback == "device":
+                    tr.count("tracking.rescans")
+                with tr.span("tracking.scan", rid=carry.frame_id + start,
+                             frames=n - start,
+                             attrs=SCAN_ATTRS[name, fallback]):
+                    c_out, o = scan(mm, c, start, outs, allow_kf, fallback)
+                    need = torch.stack(o[3]).to(torch.int32)
+                    no = torch.zeros((), dtype=torch.bool, device=dev)
+                    wanted = torch.stack(o[5][start:] or [no]).any().to(
+                        torch.int32)
+                    flag, idx, again = torch.stack(
+                        [need.max(), torch.argmax(need), wanted]).tolist()
                 if not again:
                     break
             return c_out, o, bool(flag), int(idx)
 
         def insert_at(mm, outs, idx):
-            return insert_and_maintain_body(
-                cfg, mm, culled[idx], outs[0][idx], carry.frame_id + idx,
-                outs[2][idx])
+            with tr.span("backend.insert", rid=carry.frame_id + idx):
+                return insert_and_maintain_body(
+                    cfg, mm, culled[idx], outs[0][idx], carry.frame_id + idx,
+                    outs[2][idx])
 
         c0 = (carry.Tcw, carry.velocity, carry.since_kf, carry.ref_matches)
         blank = [[None] * n for _ in range(6)]
-        c_fin, outs, flag1, i1 = tracked(m, c0, 0, blank, True)
+        c_fin, outs, flag1, i1 = tracked(m, c0, 0, blank, True, "track")
         mark("track")
         flag2, i2 = False, 0
         if flag1:
             m = insert_at(m, outs, i1)
             mark("insert1")
             c_fin, outs, flag2, i2 = tracked(m, outs[4][i1], i1 + 1, outs,
-                                             True)
+                                             True, "retrack1")
             mark("retrack1")
             if flag2:
                 m = insert_at(m, outs, i2)
                 mark("insert2")
                 c_fin, outs, _, _ = tracked(m, outs[4][i2], i2 + 1, outs,
-                                            False)
+                                            False, "retrack2")
                 mark("retrack2")
 
         carry2 = TrackCarry(Tcw=c_fin[0], velocity=c_fin[1],
@@ -316,7 +362,15 @@ class _KfEvent:
 class _ChunkRunnerBase:
     """Host facade: bootstrap frame by frame, then one chunk function call
     per chunk, drained every `fetch_every` chunks; loop closing,
-    relocalization and semantic mapping fire at drain time."""
+    relocalization and semantic mapping fire at drain time.
+
+    `metrics` is the runner's tracer (`utils/timing.Metrics`), active for
+    each call of `bootstrap`, `process_chunk` and `flush`, so that the
+    inner `Tracker`, the chunk function and the loop closer record into
+    it: a `runner.frame` span per bootstrap frame, a `runner.chunk` span
+    per chunk (its first frame's id and its frame count), `runner.drain`
+    and `runner.flush`, and below them the stages' spans, `mapping` and
+    `reloc`; it counts `frames`."""
 
     semantic = False
     stereo = False
@@ -379,6 +433,7 @@ class _ChunkRunnerBase:
         self._traj_refpose: list[np.ndarray] = []
         self.n_inliers_hist: list[int] = []
         self.frame_lost: list[bool] = []
+        self.metrics = timing.Metrics()
         # timing hooks: `on_chunk_stage(name)` gets the chunk function's
         # stages (`make_track_chunk`), `on_stage(name)` "begin" and
         # "loop_closing" around each keyframe event's loop closing
@@ -396,6 +451,13 @@ class _ChunkRunnerBase:
     # -- bootstrap: the per-frame path until the map initializes --
     def bootstrap(self, gray, depth):
         """For stereo runners, (gray, depth) is the (left, right) pair."""
+        tr = self.metrics
+        with timing.tracing(tr), tr.span("runner.frame",
+                                         rid=self.inner.frame_id, frames=1):
+            tr.count("frames")
+            return self._bootstrap(gray, depth)
+
+    def _bootstrap(self, gray, depth):
         cfg = self.cfg
         gray = _as_tensor(gray, self.device).to(torch.float32)
         depth = _as_tensor(depth, self.device).to(torch.float32)
@@ -413,7 +475,8 @@ class _ChunkRunnerBase:
         self.inner.process(gray, None if self.stereo else depth, feats=feats)
         # localization-only resume: recover through the keyframe database
         if self.inner.state == "LOST" and self.loop is not None:
-            T, _ = self.loop.relocalize(self.inner.map, feats)
+            with self.metrics.span("reloc"):
+                T, _ = self.loop.relocalize(self.inner.map, feats)
             if T is not None:
                 self.inner.force_pose(T)
                 self.relocs += 1
@@ -450,22 +513,32 @@ class _ChunkRunnerBase:
         """grays/depths [chunk, H, W]. Results are drained every
         `fetch_every` chunks; call flush() for the tail."""
         assert self._carry is not None, "bootstrap first"
-        if self._want_compact:
-            self._compact_now()
-        grays = _as_tensor(grays, self.device).to(torch.float32)
-        depths = _as_tensor(depths, self.device).to(torch.float32)
-        (self._map, self._carry, packed, feats_last, kf_dyn,
-         kf_obj) = self._fn(self._map, self._carry, grays, depths,
-                            self.chunk if n_live is None else n_live)
-        self._inflight.append((_start_fetch([packed]), feats_last, kf_dyn,
-                               kf_obj, grays, depths))
-        if len(self._inflight) >= self.fetch_every:
-            self._drain_all()
+        n_live = self.chunk if n_live is None else n_live
+        tr = self.metrics
+        with timing.tracing(tr), tr.span("runner.chunk",
+                                         rid=self._carry.frame_id,
+                                         frames=n_live):
+            tr.count("frames", n_live)
+            if self._want_compact:
+                self._compact_now()
+            grays = _as_tensor(grays, self.device).to(torch.float32)
+            depths = _as_tensor(depths, self.device).to(torch.float32)
+            (self._map, self._carry, packed, feats_last, kf_dyn,
+             kf_obj) = self._fn(self._map, self._carry, grays, depths,
+                                n_live)
+            self._inflight.append((_start_fetch([packed]), feats_last,
+                                   kf_dyn, kf_obj, grays, depths))
+            if len(self._inflight) >= self.fetch_every:
+                self._drain_all()
 
     # ------------------------------------------------------------------
     def _drain_all(self):
         if not self._inflight:
             return
+        with self.metrics.span("runner.drain"):
+            self._drain()
+
+    def _drain(self):
         recs = self._inflight
         self._inflight = []
         win_start = len(self.trajectory)
@@ -524,10 +597,11 @@ class _ChunkRunnerBase:
         self._ref_slot = kf_id
         self._ref_pose_ins = ev.pose
         if self.mapper is not None:
-            self.mapper.insert_keyframe(ev.gray, ev.depth,
-                                        torch.as_tensor(ev.pose,
-                                                        device=self.device),
-                                        ev.dyn_boxes, ev.obj_boxes)
+            with self.metrics.span("mapping"):
+                self.mapper.insert_keyframe(
+                    ev.gray, ev.depth,
+                    torch.as_tensor(ev.pose, device=self.device),
+                    ev.dyn_boxes, ev.obj_boxes)
         if self.loop is not None:
             self._mark("begin")
             self._install_correction(self.loop.on_keyframe(self._map, kf_id))
@@ -630,7 +704,8 @@ class _ChunkRunnerBase:
         return tail_lost
 
     def _try_relocalize(self, feats_last):
-        T, _ = self.loop.relocalize(self._map, feats_last)
+        with self.metrics.span("reloc"):
+            T, _ = self.loop.relocalize(self._map, feats_last)
         if T is not None:
             self.relocs += 1
             self._carry = dataclasses.replace(
@@ -639,14 +714,16 @@ class _ChunkRunnerBase:
 
     def flush(self):
         """Drain in-flight chunks and resolve a deferred loop detection."""
-        self._drain_all()
-        if self._carry is None:
-            return
-        if self.loop is not None:
-            self._install_correction(self.loop.flush(self._map))
-            if self._world_corrected:
-                self._reanchor_after_corrections()
-            self._seam_frame = -1
+        tr = self.metrics
+        with timing.tracing(tr), tr.span("runner.flush"):
+            self._drain_all()
+            if self._carry is None:
+                return
+            if self.loop is not None:
+                self._install_correction(self.loop.flush(self._map))
+                if self._world_corrected:
+                    self._reanchor_after_corrections()
+                self._seam_frame = -1
 
     flush_keyframes = flush
 

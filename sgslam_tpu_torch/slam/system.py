@@ -15,11 +15,17 @@ is `slam.mono.MonoTracker`) run the same tracker, back-end and loop closer;
 the semantic mapper stays RGB-D-only, as in the reference. Entry points
 run on `device` ("cuda" by default).
 
-`on_stage(name)`, if set, is called with "begin" at the start of
-`track_rgbd` and after each of its stages ("detector", "extract", "cull",
-"track", "relocalize" when tracking is lost, and "loop_closing" and
-"mapping" on keyframes; `track_stereo` and `track_monocular` list
-theirs), for timing with device events; it must not touch the state.
+`metrics` is the system's tracer (`utils/timing.Metrics`), active for
+each call of `track_rgbd`, `track_stereo` and `track_monocular`: a
+`runner.frame` span per frame holds the stages' spans (`semantic.detector`,
+`front_end.extract`, `semantic.cull`, tracking's, `reloc`, `loop.detect`,
+`mapping`); it counts `frames`, `keyframes`, `loops_closed`,
+`reloc_attempts` and `reloc_success`. `on_stage(name)`, if set, is called
+with "begin" at the start of `track_rgbd` and after each of its stages
+("detector", "extract", "cull", "track", "relocalize" when tracking is
+lost, and "loop_closing" and "mapping" on keyframes; `track_stereo` and
+`track_monocular` list theirs), at the closing edge of the stage's span,
+for timing with device events; it must not touch the state.
 `sampler` replaces the F-RANSAC draws and `draws` the loop closer's (tests
 replay the reference's).
 """
@@ -37,7 +43,7 @@ from ..io import trajectory as traj_io
 from ..mapping.semantic_mapper import SemanticMapper
 from ..semantic import dynamic as dyn_mod
 from ..semantic.dynamic import Boxes
-from ..utils.timing import Metrics
+from ..utils import timing
 from . import tracking
 from .loop_closing import LoopCloser
 from .tracking import _as_tensor
@@ -77,7 +83,7 @@ class System:
                                              self.device)
         self.object_boxes = None
         self.timestamps: list[float] = []
-        self.metrics = Metrics()
+        self.metrics = timing.Metrics()
         self.on_stage = None
 
     def _mark(self, name: str):
@@ -89,8 +95,17 @@ class System:
                    timestamp: Optional[float] = None) -> np.ndarray:
         """Main per-frame API (System::TrackRGBD contract). gray, depth
         [H,W] and rgb [H,W,3] float32 (numpy or tensors). Returns Tcw [7]."""
+        tr = self.metrics
+        with timing.tracing(tr), tr.span("runner.frame",
+                                         rid=self.tracker.frame_id,
+                                         frames=1):
+            tr.count("frames")
+            return self._track_rgbd(gray, depth, rgb, timestamp)
+
+    def _track_rgbd(self, gray, depth, rgb, timestamp):
         cfg = self.cfg
         dev = self.device
+        tr = self.metrics
         gray = _as_tensor(gray, dev)
         depth = _as_tensor(depth, dev)
         self.timestamps.append(
@@ -100,7 +115,7 @@ class System:
 
         # 2-D detection on the current frame
         if self.detector is not None and rgb is not None:
-            with self.metrics.timer("detector"):
+            with tr.span("semantic.detector"):
                 (_, person_cull, person_map,
                  objects2d) = self.detector.detect(
                     _as_tensor(rgb, dev), cfg.camera.width, cfg.camera.height)
@@ -111,14 +126,14 @@ class System:
             dynamic_boxes = Boxes.empty(cfg.detector.max_boxes, dev)
         self._mark("detector")
 
-        with self.metrics.timer("extract"):
+        with tr.span("front_end.extract"):
             feats = tracking.extract_frame(cfg, gray, depth, dev)
         feats_raw = feats   # pre-cull block: next frame's match target
         self._mark("extract")
 
         # semantic + geometric dynamic rejection
         if self.enable_semantic:
-            with self.metrics.timer("dynamic_cull"):
+            with tr.span("semantic.cull"):
                 # the init-frame box-only cull needs real detections;
                 # oracle-box tests inject boxes only after initialization
                 init_done = (self.tracker.state != "NOT_INITIALIZED"
@@ -128,20 +143,19 @@ class System:
                                            map_initialized=init_done)
         self._mark("cull")
 
-        with self.metrics.timer("track"):
-            Tcw = self.tracker.process(gray, depth, feats=feats)
+        Tcw = self.tracker.process(gray, depth, feats=feats)
         self.last_feats = feats   # post-cull features
         self._mark("track")
 
         # relocalization on tracking loss (Tracking::Relocalization path)
         if self.tracker.state == "LOST" and self.loop is not None:
-            with self.metrics.timer("relocalize"):
+            with tr.span("reloc"):
                 T_reloc, _ = self.loop.relocalize(self.tracker.map, feats)
-            self.metrics.count("reloc_attempts")
+            tr.count("reloc_attempts")
             if T_reloc is not None:
                 self.tracker.force_pose(T_reloc)
                 Tcw = T_reloc.cpu().numpy()
-                self.metrics.count("reloc_success")
+                tr.count("reloc_success")
             self._mark("relocalize")
         tracked_Tcw = self.tracker.Tcw
 
@@ -153,11 +167,11 @@ class System:
 
         # keyframe side effects: loop closing + semantic mapping
         if self.tracker.kf_inserted:
-            self.metrics.count("keyframes")
+            tr.count("keyframes")
             if self.loop is not None:
                 self._loop_closing()
             if self.mapper is not None:
-                with self.metrics.timer("mapping"):
+                with tr.span("mapping"):
                     self.mapper.insert_keyframe(
                         gray, depth, tracked_Tcw, dynamic_boxes,
                         self.object_boxes)
@@ -168,8 +182,7 @@ class System:
 
     def _loop_closing(self):
         kf_id = self.tracker.last_kf_id
-        with self.metrics.timer("loop_closing"):
-            corrected = self.loop.on_keyframe(self.tracker.map, kf_id)
+        corrected = self.loop.on_keyframe(self.tracker.map, kf_id)
         if corrected is not None:
             self.metrics.count("loops_closed")
             self.tracker.map = corrected
@@ -200,14 +213,23 @@ class System:
         work as in track_rgbd). The loop closer applies unchanged; the
         semantic mapper needs metric depth and stays RGB-D-only. Stages:
         "begin", "detector", "extract", "cull", "track", "loop_closing"."""
+        tr = self.metrics
+        with timing.tracing(tr), tr.span("runner.frame",
+                                         rid=self.tracker.frame_id,
+                                         frames=1):
+            tr.count("frames")
+            return self._track_stereo(gray_l, gray_r, rgb)
+
+    def _track_stereo(self, gray_l, gray_r, rgb):
         cfg = self.cfg
         dev = self.device
+        tr = self.metrics
         gray_l = _as_tensor(gray_l, dev).to(torch.float32)
         self.timestamps.append(len(self.timestamps) / cfg.fps)
         self._mark("begin")
 
         if self.detector is not None and rgb is not None:
-            with self.metrics.timer("detector"):
+            with tr.span("semantic.detector"):
                 (_, person_cull, person_map,
                  objects2d) = self.detector.detect(
                     _as_tensor(rgb, dev), cfg.camera.width, cfg.camera.height)
@@ -218,12 +240,12 @@ class System:
             dynamic_boxes = Boxes.empty(cfg.detector.max_boxes, dev)
         self._mark("detector")
 
-        with self.metrics.timer("extract"):
+        with tr.span("front_end.extract"):
             feats = tracking.extract_frame_stereo(cfg, gray_l, gray_r, dev)
         feats_raw = feats
         self._mark("extract")
         if self.enable_semantic:
-            with self.metrics.timer("dynamic_cull"):
+            with tr.span("semantic.cull"):
                 init_done = (self.tracker.state != "NOT_INITIALIZED"
                              or self.detector is None)
                 feats = self.frontend.cull(gray_l, feats,
@@ -231,8 +253,7 @@ class System:
                                            map_initialized=init_done)
         self._mark("cull")
 
-        with self.metrics.timer("track"):
-            Tcw = self.tracker.process(gray_l, None, feats=feats)
+        Tcw = self.tracker.process(gray_l, None, feats=feats)
         self.last_feats = feats
         self._mark("track")
         self._post_track()
@@ -243,14 +264,18 @@ class System:
         """Monocular per-frame API (System::TrackMonocular contract): the
         tracker must be a slam.mono.MonoTracker (see System.monocular).
         Stages: "begin", "track" (extraction included), "loop_closing"."""
-        self.timestamps.append(len(self.timestamps) / self.cfg.fps)
-        self._mark("begin")
-        with self.metrics.timer("track"):
+        tr = self.metrics
+        with timing.tracing(tr), tr.span("runner.frame",
+                                         rid=self.tracker.frame_id,
+                                         frames=1):
+            tr.count("frames")
+            self.timestamps.append(len(self.timestamps) / self.cfg.fps)
+            self._mark("begin")
             Tcw = self.tracker.process_mono(gray)
-        self._mark("track")
-        if self.tracker.state == "OK":
-            self._post_track()
-        return Tcw
+            self._mark("track")
+            if self.tracker.state == "OK":
+                self._post_track()
+            return Tcw
 
     @classmethod
     def monocular(cls, cfg: SlamConfig, **kw):
@@ -288,13 +313,16 @@ class System:
             torch.cuda.synchronize(self.device)
 
     def reset(self):
-        """System::Reset contract: drop map + trajectory, keep config."""
+        """System::Reset contract: drop map + trajectory, keep config and
+        the tracer."""
+        metrics = self.metrics
         self.__init__(self.cfg, self.loop.vocab if self.loop else None,
                       enable_semantic=self.enable_semantic,
                       enable_loop=self.loop is not None,
                       enable_mapping=self.mapper is not None,
                       detector=self.detector, device=self.device,
                       sampler=self._sampler, draws=self._draws)
+        self.metrics = metrics
 
     # -- map checkpoint / resume (the reference's unimplemented TODO) --
     def save_checkpoint(self, path: str):

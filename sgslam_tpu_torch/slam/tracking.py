@@ -6,10 +6,17 @@ Port of `sgslam_tpu/slam/tracking.py` (`extract_frame`,
 `local_ba_step`, `local_ba_cov_step`, `process_new_keyframe`, `Tracker`).
 `track_step` is the reference's TrackWithMotionModel + TrackLocalMap
 contract: local-point selection, then two rounds of projective search,
-duplicate resolution and motion-only BA. Each round's search computes one
-[local points x keypoints] Hamming matrix through the CUDA kernel
-(`ops/hamming_cuda.py`) on the GPU; the back-end pass adds two more
-(triangulation and duplicate fusion).
+duplicate resolution and motion-only BA. Each round's search is one
+launch of the fused Hamming search K1s (`ops/hamming_search.py`) on the
+GPU; the back-end pass adds two more (triangulation and duplicate
+fusion).
+
+Spans on the active tracer (`utils/timing.active()`): `tracking.step` per
+frame of `Tracker.process`, with `tracking.local_points`,
+`tracking.search` and `tracking.pose_opt` inside `track_step`;
+`backend.insert` per keyframe insertion, with `backend.cull`,
+`backend.triangulate`, `backend.fuse`, `backend.ba` and `backend.kf_cull`
+inside `process_new_keyframe`.
 
 The reference's `lax.cond`s are Python `if`s here: the brute-force
 fallback on the stage-1 inlier count (one host read per frame), and the
@@ -32,6 +39,7 @@ from ..matching import search
 from ..ops import orb
 from ..ops import stereo as stereo_ops
 from ..optim import local_ba, pose_opt
+from ..utils import timing
 
 NO_POINT = ms.NO_POINT
 
@@ -102,25 +110,30 @@ def track_step(cfg: SlamConfig, m: ms.MapState, feats: orb.Features,
     pipeline). The last two read nothing back.
     """
     dev = resolve_device(device)
+    tr = timing.active()
     m, feats, Tcw_pred = m.to(dev), feats.to(dev), Tcw_pred.to(dev)
     t = cfg.tracker
-    local = lm.select_local_points(cfg.camera, m, Tcw_pred,
-                                   scale_factor=cfg.orb.scale_factor,
-                                   capacity=cfg.capacity.local_points)
+    with tr.span("tracking.local_points"):
+        local = lm.select_local_points(cfg.camera, m, Tcw_pred,
+                                       scale_factor=cfg.orb.scale_factor,
+                                       capacity=cfg.capacity.local_points)
 
     def associate_and_optimize(Tcw_in, radius_mult, max_dist, rounds, iters):
-        pc = se3.se3_apply(Tcw_in[None], local.pos)
-        idx, ok, dist = search.search_by_projection(
-            project(cfg.camera, pc), local.radius * radius_mult,
-            local.pred_level, local.desc, local.valid & (pc[..., 2] > 0.1),
-            feats.xy, feats.level, feats.desc, feats.valid,
-            level_window=1, max_dist=max_dist,
-            scale_factor=cfg.orb.scale_factor)
-        ok = search.resolve_duplicate_targets(idx, ok, dist, feats.capacity)
-        obs, inv_s2 = _pose_inputs(cfg, feats, idx)
-        Tcw, inl, n = pose_opt.pose_optimization(
-            cfg.camera, Tcw_in, local.pos, obs, inv_s2, ok,
-            rounds=rounds, iters=iters, guarded=False)
+        with tr.span("tracking.search"):
+            pc = se3.se3_apply(Tcw_in[None], local.pos)
+            idx, ok, dist = search.search_by_projection(
+                project(cfg.camera, pc), local.radius * radius_mult,
+                local.pred_level, local.desc,
+                local.valid & (pc[..., 2] > 0.1), feats.xy, feats.level,
+                feats.desc, feats.valid, level_window=1, max_dist=max_dist,
+                scale_factor=cfg.orb.scale_factor)
+            ok = search.resolve_duplicate_targets(idx, ok, dist,
+                                                  feats.capacity)
+        with tr.span("tracking.pose_opt"):
+            obs, inv_s2 = _pose_inputs(cfg, feats, idx)
+            Tcw, inl, n = pose_opt.pose_optimization(
+                cfg.camera, Tcw_in, local.pos, obs, inv_s2, ok,
+                rounds=rounds, iters=iters, guarded=False)
         return Tcw, idx, ok & inl, n
 
     # Stage 1: wide search at predicted pose (motion-model contract);
@@ -133,13 +146,16 @@ def track_step(cfg: SlamConfig, m: ms.MapState, feats: orb.Features,
     # descriptor-only brute force vs the local points, the contract of
     # TrackReferenceKeyFrame's SearchByBoW path (Tracking.cc:796-860).
     def brute_force():
-        idx, ok, dist = search.match_by_descriptor(
-            local.desc, local.valid, feats.desc, feats.valid, cfg.matcher,
-            max_dist=cfg.matcher.th_low, mutual=True)
-        ok = search.resolve_duplicate_targets(idx, ok, dist, feats.capacity)
-        obs, inv_s2 = _pose_inputs(cfg, feats, idx)
-        return pose_opt.pose_optimization(
-            cfg.camera, Tcw_pred, local.pos, obs, inv_s2, ok)[0]
+        with tr.span("tracking.search"):
+            idx, ok, dist = search.match_by_descriptor(
+                local.desc, local.valid, feats.desc, feats.valid,
+                cfg.matcher, max_dist=cfg.matcher.th_low, mutual=True)
+            ok = search.resolve_duplicate_targets(idx, ok, dist,
+                                                  feats.capacity)
+        with tr.span("tracking.pose_opt"):
+            obs, inv_s2 = _pose_inputs(cfg, feats, idx)
+            return pose_opt.pose_optimization(
+                cfg.camera, Tcw_pred, local.pos, obs, inv_s2, ok)[0]
 
     wants_fallback = n1 < t.min_matches_motion
     if fallback == "device":
@@ -212,22 +228,28 @@ def process_new_keyframe(cfg: SlamConfig, m: ms.MapState, kf_id,
     stage of BACKEND_STAGES (for timing; it must not touch the map).
     """
     mark = on_stage or (lambda name: None)
+    tr = timing.active()
     mark("begin")
-    m = mt.cull_map_points(m)
+    with tr.span("backend.cull"):
+        m = mt.cull_map_points(m)
     mark("cull")
-    prev = int(mt.prev_valid_kf(m, kf_id))
-    if prev >= 0:
-        m = mt.triangulate_new_points(cfg.camera, m, kf_id, prev,
-                                      scale_factor=cfg.orb.scale_factor)
+    with tr.span("backend.triangulate"):
+        prev = int(mt.prev_valid_kf(m, kf_id))
+        if prev >= 0:
+            m = mt.triangulate_new_points(cfg.camera, m, kf_id, prev,
+                                          scale_factor=cfg.orb.scale_factor)
     mark("triangulate")
-    m = mt.fuse_duplicates(cfg.camera, m, kf_id,
-                           scale_factor=cfg.orb.scale_factor,
-                           max_candidates=cfg.capacity.local_points)
+    with tr.span("backend.fuse"):
+        m = mt.fuse_duplicates(cfg.camera, m, kf_id,
+                               scale_factor=cfg.orb.scale_factor,
+                               max_candidates=cfg.capacity.local_points)
     mark("fuse")
-    if int(torch.sum(m.kf_valid)) >= 3:
-        m = local_ba_step(cfg, m, kf_id)
+    with tr.span("backend.ba"):
+        if int(torch.sum(m.kf_valid)) >= 3:
+            m = local_ba_step(cfg, m, kf_id)
     mark("ba")
-    m = mt.cull_keyframes(m)
+    with tr.span("backend.kf_cull"):
+        m = mt.cull_keyframes(m)
     mark("kf_cull")
     return m
 
@@ -286,21 +308,23 @@ class Tracker:
         return bool(c1 or (c2 and n_inliers > 15))
 
     def _insert_kf(self, feats, matched):
-        kf_slot = int(self.map.next_kf)
-        self.map = ms.insert_keyframe(
-            self.cfg.camera, self.cfg.orb.scale_factor, self.map, feats,
-            self.Tcw, self.frame_id, matched,
-            self.cfg.close_depth_threshold)
-        self.last_kf_frame_id = self.frame_id
-        self.n_kf += 1
-        self.kf_inserted = True
-        self.last_kf_id = kf_slot
-        # full back-end pass per keyframe (LocalMapping::Run contract):
-        # point culling, triangulation, fusion, local BA, KF culling
-        if self.n_kf >= 2 and (self.n_kf % self.local_ba_every == 0):
-            self.map = process_new_keyframe(self.cfg, self.map, kf_slot,
-                                            on_stage=self.on_backend_stage)
-        self._maybe_compact()
+        with timing.active().span("backend.insert", rid=self.frame_id):
+            kf_slot = int(self.map.next_kf)
+            self.map = ms.insert_keyframe(
+                self.cfg.camera, self.cfg.orb.scale_factor, self.map, feats,
+                self.Tcw, self.frame_id, matched,
+                self.cfg.close_depth_threshold)
+            self.last_kf_frame_id = self.frame_id
+            self.n_kf += 1
+            self.kf_inserted = True
+            self.last_kf_id = kf_slot
+            # full back-end pass per keyframe (LocalMapping::Run contract):
+            # point culling, triangulation, fusion, local BA, KF culling
+            if self.n_kf >= 2 and (self.n_kf % self.local_ba_every == 0):
+                self.map = process_new_keyframe(
+                    self.cfg, self.map, kf_slot,
+                    on_stage=self.on_backend_stage)
+            self._maybe_compact()
 
     def _maybe_compact(self):
         """Repack the map when monotonic slot allocation nears capacity.
@@ -361,29 +385,34 @@ class Tracker:
             self.frame_id += 1
             return self.Tcw.cpu().numpy()
 
-        Tcw_pred = se3.se3_compose(self.velocity, self.last_Tcw)
-        Tcw, matched, n_inl, tracked_close, untracked_close, _ = track_step(
-            self.cfg, self.map, feats, Tcw_pred, self.device)
-        n_inl = int(n_inl)
-        self.n_inliers_hist.append(n_inl)
+        with timing.active().span("tracking.step", rid=self.frame_id,
+                                  frames=1):
+            Tcw_pred = se3.se3_compose(self.velocity, self.last_Tcw)
+            (Tcw, matched, n_inl, tracked_close, untracked_close,
+             _) = track_step(self.cfg, self.map, feats, Tcw_pred,
+                             self.device)
+            n_inl = int(n_inl)
+            self.n_inliers_hist.append(n_inl)
 
-        # TrackLocalMap inlier gates (Tracking.cc:1006-1012): 50 inliers
-        # required shortly after a relocalization, 30 otherwise
-        t = self.cfg.tracker
-        recently_relocated = (self.frame_id - self.last_reloc_frame_id
-                              < t.max_frames_between_kf)
-        min_inl = (t.min_inliers_after_reloc if recently_relocated
-                   else t.min_inliers_local_map)
-        if n_inl < min_inl:
-            self.state = "LOST"
-            self.Tcw = Tcw_pred
-        else:
-            self.state = "OK"
-            self.Tcw = Tcw
-            if not self.only_tracking and self._need_new_kf(
-                    n_inl, int(tracked_close), int(untracked_close)):
-                self.ref_matches = max(n_inl, 30)
-                self._insert_kf(feats, matched)
+            # TrackLocalMap inlier gates (Tracking.cc:1006-1012): 50
+            # inliers required shortly after a relocalization, 30 otherwise
+            t = self.cfg.tracker
+            recently_relocated = (self.frame_id - self.last_reloc_frame_id
+                                  < t.max_frames_between_kf)
+            min_inl = (t.min_inliers_after_reloc if recently_relocated
+                       else t.min_inliers_local_map)
+            insert = False
+            if n_inl < min_inl:
+                self.state = "LOST"
+                self.Tcw = Tcw_pred
+            else:
+                self.state = "OK"
+                self.Tcw = Tcw
+                insert = not self.only_tracking and self._need_new_kf(
+                    n_inl, int(tracked_close), int(untracked_close))
+        if insert:
+            self.ref_matches = max(n_inl, 30)
+            self._insert_kf(feats, matched)
 
         self.velocity = se3.se3_compose(self.Tcw,
                                         se3.se3_inverse(self.last_Tcw))

@@ -1,10 +1,15 @@
-"""Per-stage timing + metrics registry, a profiler trace context, and the
-card timers of the measurement layer.
+"""The program's tracer (`Metrics`, `active`, `tracing`), a profiler trace
+context, and the card timers of the measurement layer.
 
-Own copy of `sgslam_tpu/utils/timing.py` (`Metrics`, numpy only), with
-`xla_trace` as a `torch.profiler` trace of the same shape. `Metrics`'
-timers read the host clock: on the GPU they time the host's enqueue of a
-stage unless the stage ends in a host read or a synchronize.
+`Metrics` is the tracer of one facade (`System`, a chunked runner): its
+counters count always; its spans are recorded only while it is on
+(`start()` to `stop()`), and cost one attribute test while it is off. A
+span records its name, its start and end in Unix-epoch ns (the clock of
+torch.profiler's kineto events), its parent and its request id (the frame
+id), and opens a `torch.profiler.record_function` range of the same name,
+so that it sits on a device trace's timeline. Functions below a facade
+reach the facade's tracer through `active()`, which the facade sets for
+the call with `tracing(metrics)`.
 
 The card timers (`event_ms`, `graph_ms`, `device_ops`), the card's label
 (`card`) and the device choice of a harness (`measurement_device`) are the
@@ -26,42 +31,143 @@ import numpy as np
 import torch
 
 
-class Metrics:
-    def __init__(self):
-        self.samples: dict[str, list[float]] = defaultdict(list)
-        self.counters: dict[str, int] = defaultdict(int)
+class Span:
+    """One span of a tracer's record. `parent` is the index of the
+    enclosing span in the record (-1 at the top), `rid` the request id
+    (the frame id; a chunk's span carries its first frame's), `frames` the
+    frames it covers where it says so, `attrs` a dict of further facts or
+    None. `end_ns` is None while the span is open."""
 
-    @contextlib.contextmanager
-    def timer(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.samples[name].append(time.perf_counter() - t0)
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "rid", "frames",
+                 "attrs")
+
+    def __init__(self, name, start_ns, parent, rid, frames, attrs):
+        self.name, self.start_ns, self.end_ns = name, start_ns, None
+        self.parent, self.rid, self.frames = parent, rid, frames
+        self.attrs = attrs
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+class _Open:
+    """The context of one recorded span."""
+
+    __slots__ = ("m", "span", "index", "range")
+
+    def __init__(self, m, span):
+        self.m, self.span = m, span
+
+    def __enter__(self):
+        m = self.m
+        self.index = len(m.spans)
+        m.spans.append(self.span)
+        m._stack.append(self.index)
+        for fn in m.listeners:
+            fn(self.span.name, True)
+        self.range = torch.profiler.record_function(self.span.name)
+        self.range.__enter__()
+        return self.span
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        m = self.m
+        self.span.end_ns = time.time_ns()
+        m._stack.pop()
+        for fn in m.listeners:
+            fn(self.span.name, False)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+class Metrics:
+    """Counters, and spans while on. `listeners` are called with (span
+    name, True) as a recorded span opens and (name, False) as it closes."""
+
+    def __init__(self):
+        self.counters: dict[str, int] = defaultdict(int)
+        self.on = False
+        self.spans: list[Span] = []
+        self.listeners: list = []
+        self._stack: list[int] = []
+        self._base: dict[str, int] = {}
 
     def count(self, name: str, inc: int = 1):
         self.counters[name] += inc
 
-    def summary(self) -> dict:
-        out = {}
-        for k, v in self.samples.items():
-            a = np.asarray(v) * 1e3
-            out[k] = dict(n=len(a), mean_ms=float(a.mean()),
-                          median_ms=float(np.median(a)),
-                          p90_ms=float(np.percentile(a, 90)))
-        out.update({f"count/{k}": v for k, v in self.counters.items()})
-        return out
+    def span(self, name: str, rid=None, frames=None, attrs=None):
+        """`with metrics.span("tracking.search"):` records the block as a
+        span while the tracer is on. `rid` defaults to the enclosing
+        span's."""
+        if not self.on:
+            return _OFF
+        parent = self._stack[-1] if self._stack else -1
+        if rid is None and parent >= 0:
+            rid = self.spans[parent].rid
+        return _Open(self, Span(name, time.time_ns(), parent, rid, frames,
+                                attrs))
+
+    def start(self):
+        """Switch on with an empty record; counts are read from here. Call
+        it outside the facade's calls (no span open)."""
+        self.on = True
+        self.spans = []
+        self._stack = []
+        self._base = dict(self.counters)
+
+    def stop(self):
+        self.on = False
+
+    def record(self) -> dict:
+        """{"spans": the spans since `start()`, in the order they opened
+        (a span still open has no `end_ns`), "counts": {counter: increase
+        since `start()`}}."""
+        counts = {k: v - self._base.get(k, 0)
+                  for k, v in self.counters.items()}
+        return {"spans": list(self.spans),
+                "counts": {k: v for k, v in counts.items() if v}}
+
+    def span_stats(self) -> dict:
+        """{span name: (count, median host ms, p90 host ms)} of the closed
+        spans: host time between the span's edges."""
+        by = defaultdict(list)
+        for s in self.spans:
+            if s.end_ns is not None:
+                by[s.name].append(s.ms)
+        return {k: (len(v), float(np.median(v)), float(np.percentile(v, 90)))
+                for k, v in by.items()}
 
     def report(self) -> str:
-        lines = []
-        for k, s in sorted(self.summary().items()):
-            if isinstance(s, dict):
-                lines.append(f"{k:30s} n={s['n']:5d} median={s['median_ms']:8.2f}ms "
-                             f"mean={s['mean_ms']:8.2f}ms p90={s['p90_ms']:8.2f}ms")
-            else:
-                lines.append(f"{k:30s} {s}")
+        """One line per span name (count, median and p90 host ms), then
+        one per counter."""
+        lines = [f"{k:28s} n={n:6d} median={med:9.3f} ms p90={p90:9.3f} ms"
+                 for k, (n, med, p90) in sorted(self.span_stats().items())]
+        lines += [f"{k:28s} {v}" for k, v in sorted(self.counters.items())]
         return "\n".join(lines)
 
+
+_IDLE = Metrics()
+_active = _IDLE
+
+
+def active() -> Metrics:
+    """The tracer of the facade call in progress (one that is off outside
+    any)."""
+    return _active
+
+
+@contextlib.contextmanager
+def tracing(m: Metrics):
+    """Make `m` the active tracer for the block."""
+    global _active
+    prev, _active = _active, m
+    try:
+        yield m
+    finally:
+        _active = prev
 
 
 @contextlib.contextmanager

@@ -223,7 +223,7 @@ def test_system_closes_the_same_loop(e2e):
     assert len(j["s"].loop.loops_closed) >= 1
     assert t["s"].loop.loops_closed[0] == j["s"].loop.loops_closed[0]
     assert t["s"].state == j["s"].state == "OK"
-    assert t["s"].metrics.summary()["count/loops_closed"] >= 1
+    assert t["s"].metrics.counters["loops_closed"] >= 1
 
 
 def test_system_cuts_keyframe_ate_as_the_reference(e2e):

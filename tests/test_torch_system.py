@@ -147,7 +147,7 @@ def test_stage_callback(runs):
     assert stages[:5] == per_frame
     assert stages.count("begin") == N
     assert stages.count("mapping") == 0          # the mapper is off here
-    assert st.metrics.summary()["count/keyframes"] == st.tracker.n_kf
+    assert st.metrics.counters["keyframes"] == st.tracker.n_kf
 
 
 def _gt_person_box(static_seq, i, depth_dynamic):
@@ -199,7 +199,7 @@ def test_api(runs, seq, tmp_path):
         sd.track_rgbd(torch.from_numpy(g), torch.from_numpy(d),
                       rgb=torch.from_numpy(np.repeat(g[..., None], 3, -1)))
     assert sd.state == "OK" and bool(sd.loop.db_valid[0])
-    assert sd.metrics.summary()["count/keyframes"] >= 1
+    assert sd.metrics.counters["keyframes"] >= 1
     sd.save_checkpoint(str(tmp_path / "loop.npz"))
     sj = JSystem(JCFG, enable_semantic=False, enable_mapping=False)
     sj.load_checkpoint(str(tmp_path / "loop.npz"))

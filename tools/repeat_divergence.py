@@ -13,7 +13,8 @@ run. During each run a `TorchDispatchMode` fingerprints the output of every
 aten operation on the run's device (a position-weighted integer sum of the
 output's bits, on the device; views are skipped) and notes the operation's
 name, the port's source lines that called it and the chunk stage it ran
-in (`ChunkedTracker.on_chunk_stage` / `on_stage`, `LoopCloser.on_stage`).
+in (`ChunkedTracker.on_chunk_stage` / `on_stage`, and the tracer's
+`loop.*` spans).
 
 The first index where the two runs' fingerprints differ names the first
 operation whose output differed on identical inputs: every operation
@@ -189,7 +190,10 @@ def main() -> int:
         ct.process_chunk = counted(ct.process_chunk)
         ct.on_chunk_stage = lambda s: rec.mark(f"chunk {chunk[0]}: {s}")
         ct.on_stage = lambda s: rec.mark(f"chunk {chunk[0]}: keyframe {s}")
-        loop.on_stage = lambda s: rec.mark(f"chunk {chunk[0]}: loop {s}")
+        ct.metrics.listeners.append(
+            lambda name, opening: name.startswith("loop.") and rec.mark(
+                f"chunk {chunk[0]}: {name} {'opens' if opening else 'ends'}"))
+        ct.metrics.start()
         t0 = time.perf_counter()
         with rec:
             run_eval.drive_chunked(ct, frames)
