@@ -5,9 +5,10 @@
 
 Phases, each of which fails the run if it fails:
   1. build every CUDA source of the port (`csrc/hamming.cu`, K1,
-     `csrc/hamming_search.cu`, the fused search K1s, and
-     `csrc/segment_sum.cu`, the deterministic segment sum), one nvcc
-     each, started together;
+     `csrc/hamming_search.cu`, the fused search K1s,
+     `csrc/segment_sum.cu`, the deterministic segment sum, and
+     `csrc/pose_opt.cu`, motion-only BA in one launch), one nvcc each,
+     started together;
   2. hold K1 against its plain PyTorch version on the card at every shape
      that the phases' configurations give it: tracking and duplicate
      fusion (local points x keypoints) and triangulation (keypoints x
@@ -21,7 +22,10 @@ Phases, each of which fails the run if it fails:
      is not counted), against K1's bound (its output's bytes: the
      tensor-core route is faster than its work); time K1s, the chain it
      replaces and its bound (what the input needs) at the tracking, cull
-     and triangulation shapes;
+     and triangulation shapes; hold the pose kernel against the plain
+     body of `pose_optimization` on the card at track_step's two calls
+     (stereo, mono and mixed rows; poses within 1e-5, inlier masks equal
+     but for rows at the gate) and time both by CUDA-graph replay;
   4. drive the main path at full width: 60 frames of the synthetic room at
      640x480 through `Tracker` with its defaults (1000 features, 1024
      keypoints, 4096 local points, the keyframe back-end after every
@@ -167,6 +171,8 @@ K1_EXTRA_SHAPES = [(200, 333), (128, 128)]
 K1S_EXTRA_CASES = [(1024, 1000, 1, False), (1024, 1000, None, True),
                    (300, 257, 7, True)]
 # K1s's timed cases: tracking's search, the cull's, triangulation's
+TOL_POSE_KERNEL = 1e-5          # the pose kernel against the plain body
+CHI2_BAND_KERNEL = 1e-3         # rows this close to the gate may flip
 K1S_TIMED = [(4096, 1024, 1, False), (1024, 1024, 1, False),
              (1024, 1024, None, True)]
 
@@ -282,20 +288,24 @@ def _segment_step(op: str) -> str:
 
 def phase_build():
     """Build every CUDA source at once (nvcc runs outside the GIL) and load
-    K1, K1s and the segment sum."""
+    K1, K1s, the segment sum and the pose kernel."""
     from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.ops import hamming_search as hs
+    from sgslam_tpu_torch.ops import pose_opt_cuda as po
     from sgslam_tpu_torch.ops import segment
 
     t0 = time.perf_counter()
-    sources = [hc.CSRC / "hamming.cu", hc.CSRC / "hamming_search.cu",
-               hc.CSRC / "segment_sum.cu"]
+    sources = [(hc.CSRC / "hamming.cu", ()),
+               (hc.CSRC / "hamming_search.cu", ()),
+               (hc.CSRC / "segment_sum.cu", ()),
+               (hc.CSRC / "pose_opt.cu", po.FLAGS)]
     with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(lambda s: hc.build_library(True, s), sources))
+        list(pool.map(lambda s: hc.build_library(True, *s), sources))
     hc.hamming_kernel.load()
     hs.hamming_search_kernel.load()
     segment.segment_kernel.load()
-    print(f"[build] {', '.join(s.name for s in sources)} built and loaded "
+    po.pose_opt_kernel.load()
+    print(f"[build] {', '.join(s.name for s, _ in sources)} built and loaded "
           f"in {time.perf_counter() - t0:.2f} s")
 
 
@@ -524,6 +534,96 @@ def phase_k1s_time(dev, max_err: int = 0):
     return entry
 
 
+def pose_opt_cases():
+    """track_step's two pose optimizations at the tracking configuration's
+    shape, as (name, n, rounds, iters, guarded)."""
+    from sgslam_tpu_torch import config
+
+    cfg = config.synthetic_config(640, 480)
+    t, n = cfg.tracker, cfg.capacity.local_points
+    return [("stage1", n, t.pose_opt_rounds_stage1, t.pose_opt_iters_stage1,
+             False),
+            ("stage2", n, t.pose_opt_rounds_stage2, t.pose_opt_iters_stage2,
+             False)]
+
+
+def phase_pose_opt(dev):
+    """The pose kernel against the plain body of `pose_optimization` on the
+    card at track_step's two calls, on seeded stereo, mono and mixed rows
+    (`ops/pose_cases.py`): poses within TOL_POSE_KERNEL, inlier masks equal
+    but for rows whose chi2 lies within CHI2_BAND_KERNEL of the gate, each
+    call one launch and repeated to the bit. Then both timed by graph
+    replay, with the plain chain's device operations per call; the kernels
+    line's `pose_opt` entry. The kernel is latency-bound by design (one
+    block, serial iterations): the entry has no byte or operation bound."""
+    import torch
+
+    from sgslam_tpu_torch.ops import pose_cases
+    from sgslam_tpu_torch.ops import pose_opt_cuda as po
+    from sgslam_tpu_torch.optim import pose_opt
+    from sgslam_tpu_torch.utils import timing
+
+    cam = pose_cases.camera()
+    rng = np.random.default_rng(3)
+    max_err = 0.0
+    for name, n, rounds, iters, guarded in pose_opt_cases():
+        kw = dict(rounds=rounds, iters=iters, guarded=guarded)
+        for mix in ("stereo", "mono", "mixed"):
+            case = pose_cases.pose_case(rng, n, mix)
+            args = pose_cases.pose_args(case, dev)
+            before = po.pose_opt_kernel.launches
+            got = [pose_opt.pose_optimization(cam, *args, **kw)
+                   for _ in range(2)]
+            want = pose_opt.pose_optimization_reference(cam, *args, **kw)
+            torch.cuda.synchronize()
+            if po.pose_opt_kernel.launches - before != 2 or not all(
+                    torch.equal(a, b) for a, b in zip(*got)):
+                raise AssertionError(f"pose kernel {name} {mix}: not one "
+                                     "launch a call, or two calls differ")
+            T, inl, cnt = got[0]
+            err = float((T - want[0]).abs().max())
+            max_err = max(max_err, err)
+            chi2, gate = pose_cases.chi2(case, want[0])
+            differ = (inl != want[1]).cpu().numpy()
+            near = np.abs(chi2 - gate) < CHI2_BAND_KERNEL
+            print(f"[parity] pose kernel {name} ({n} rows, {rounds}x{iters}, "
+                  f"{mix}): pose gap {err:.3e}, inliers {int(cnt)} / plain "
+                  f"{int(want[2])}, {int(differ.sum())} flags differ "
+                  f"({int(near.sum())} rows at the gate)")
+            if not err <= TOL_POSE_KERNEL or (differ & ~near).any() \
+                    or int(cnt) != int(inl.sum()):
+                raise AssertionError(f"pose kernel {name} {mix}: pose gap "
+                                     f"{err:.3e} or inlier flags away from "
+                                     "the gate differ")
+
+    entry = None
+    for name, n, rounds, iters, guarded in pose_opt_cases():
+        args = pose_cases.pose_args(pose_cases.pose_case(rng, n, "mixed"),
+                                    dev)
+        kw = dict(rounds=rounds, iters=iters, guarded=guarded)
+        call = lambda: pose_opt.pose_optimization(cam, *args, **kw)
+        plain = lambda: pose_opt.pose_optimization_reference(cam, *args,
+                                                             **kw)
+        ms = timing.graph_ms(call, calls=20)
+        plain_ms = timing.graph_ms(plain, calls=1)
+        plain_ops = sum(c for _, c, _ in timing.device_ops(plain, 2))
+        call_ms = timing.event_ms(call, runs=50)
+        print(f"[time] pose kernel {name} ({n} rows, {rounds}x{iters}): "
+              f"kernel_ms={ms:.5f}; the plain chain {plain_ms:.5f} ms "
+              f"({plain_ops:.0f} device operations a call; device times "
+              f"from CUDA-graph replay); one eager pose_optimization call "
+              f"between events {call_ms:.5f} ms")
+        if entry is None:
+            entry = {"name": "pose_opt", "route": "cuda",
+                     "source": "sgslam_tpu_torch/csrc/pose_opt.cu",
+                     "replaces": "sgslam_tpu/optim/pose_opt.py (XLA ops; "
+                                 "no Pallas kernel)",
+                     "launches": 0, "max_abs_err": max_err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": None,
+                     "bound_by": "latency", "library_ms": None}
+    return entry
+
+
 class SegmentInputs:
     """Stands in for `ops.segment.segment_kernel` for the whole run: every
     call goes to the kernel (which counts its launches). Per phase and call
@@ -725,14 +825,16 @@ def phase_segment(dev, rec: SegmentInputs, launches: int):
 
 
 def _zero_counts():
-    """Set K1's, K1s's and the segment sum's launch counts to 0 before a
-    path."""
+    """Set K1's, K1s's, the segment sum's and the pose kernel's launch
+    counts to 0 before a path."""
     from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.ops import hamming_search as hs
+    from sgslam_tpu_torch.ops import pose_opt_cuda as po
     from sgslam_tpu_torch.ops import segment
 
     hc.hamming_kernel.launches = 0
     hs.hamming_search_kernel.launches = 0
+    po.pose_opt_kernel.launches = 0
     segment.segment_kernel.launches = 0
 
 
@@ -1300,6 +1402,7 @@ def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
     and the kernels' counts set to 0 just before the timed region."""
     from sgslam_tpu_torch import bench
     from sgslam_tpu_torch.ops import hamming_cuda as hc
+    from sgslam_tpu_torch.ops import pose_opt_cuda as po
     from sgslam_tpu_torch.ops import segment
     from sgslam_tpu_torch.utils import timing
 
@@ -1316,6 +1419,8 @@ def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
     kernels["hamming_search"]["launches"] = launches
     k1_launches = hc.hamming_kernel.launches
     kernels["hamming_matrix"]["launches"] = k1_launches
+    pose_launches = po.pose_opt_kernel.launches
+    kernels["pose_opt"]["launches"] = pose_launches
     seg_launches = segment.segment_kernel.launches
     n = info["frames"]
 
@@ -1335,7 +1440,8 @@ def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
           f"{ct.relocs}, min inliers {min_inl}, ATE {rmse:.5f} m over "
           f"{len(est)} frames, K1s launches {launches} "
           f"({launches / n:.2f}/frame), segment-sum launches {seg_launches} "
-          f"({seg_launches / n:.2f}/frame)")
+          f"({seg_launches / n:.2f}/frame), pose-kernel launches "
+          f"{pose_launches} ({pose_launches / n:.2f}/frame)")
     print(f"[bench-path] frames/s (bench.py's metric: timed frames over the "
           f"wall time of the timed chunks and the final flush): {fps:.3f} "
           f"({info['seconds']:.3f} s for {n} frames) on "
@@ -1350,9 +1456,10 @@ def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
         raise AssertionError(f"bench path: inliers fell to {min_inl}")
     if not rmse < ATE_GATE_M:
         raise AssertionError(f"bench path: ATE {rmse:.4f} m")
-    if launches < 1 or seg_launches < 1:
+    if launches < 1 or seg_launches < 1 or pose_launches < 2 * n:
         raise AssertionError("bench path: K1s or the segment sum never "
-                             "launched")
+                             "launched, or the pose kernel fewer than twice "
+                             "a frame")
     if k1_launches:
         raise AssertionError(f"bench path: K1 launched {k1_launches} times "
                              "(a search wrote its [Q, N] matrix)")
@@ -2517,7 +2624,8 @@ def main() -> int:
     max_err = phase_k1_parity(dev, rng, shapes)
     max_err_s = phase_k1s_parity(dev, cases)
     kernels = {"hamming_matrix": phase_k1_time(dev, rng, max_err, shapes),
-               "hamming_search": phase_k1s_time(dev, max_err_s)}
+               "hamming_search": phase_k1s_time(dev, max_err_s),
+               "pose_opt": phase_pose_opt(dev)}
 
     def run(phase, fn, *args):
         rec.phase = phase

@@ -79,12 +79,15 @@ def hamming_bound(n: int, m: int) -> tuple:
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
 
-def build_library(verbose: bool = False, source: Path = _SOURCE) -> Path:
+def build_library(verbose: bool = False, source: Path = _SOURCE,
+                  flags: tuple = ()) -> Path:
     """Compile a CUDA source of csrc/ (by default hamming.cu), if not
-    already built, into a shared library and return its path. The file
-    name carries a hash of the source and the flags, so an edit rebuilds."""
+    already built, into a shared library and return its path; `flags` are
+    added to NVCC_FLAGS. The file name carries a hash of the source and the
+    flags, so an edit rebuilds."""
     src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = (*NVCC_FLAGS, *flags)
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
     lib = _BUILD_DIR / f"libsgslam_{source.stem}_{tag}.so"
     if lib.exists():
         return lib
@@ -96,7 +99,7 @@ def build_library(verbose: bool = False, source: Path = _SOURCE) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [nvcc, *NVCC_FLAGS]
+        cmd = [nvcc, *flags]
         if verbose:
             cmd += ["-Xptxas", "-v"]
         res = subprocess.run(cmd + ["-o", tmp, str(source)],

@@ -3,10 +3,15 @@
 Port of `sgslam_tpu/optim/pose_opt.py` (Optimizer::PoseOptimization's
 contract): Gauss-Newton on the (u, v, u_right) pseudo-stereo residual, or
 the 2-D mono residual where u_right < 0, with Huber weights in the first two
-rounds and chi2 gating between rounds. The fixed-count loops are Python
-loops. The guarded step's accept test is a `torch.where` on the device, so a
-round costs no host round trip; the 6x6 solve is `geometry.linalg.solve`
-in float32, which checks no error flag and so does not wait for the device.
+rounds and chi2 gating between rounds.
+
+On CUDA tensors a call is one launch of `csrc/pose_opt.cu`
+(`ops/pose_opt_cuda.py`), which runs every round and iteration on the card.
+On CPU tensors the plain body below runs: the fixed-count loops are Python
+loops, the guarded step's accept test is a `torch.where`, and the 6x6 solve
+is `geometry.linalg.solve` in float32, which checks no error flag. Neither
+reads anything back to the host. The tracer counts `pose_opt.calls` and,
+of those, `pose_opt.kernel`.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import torch
 
 from ..geometry import linalg, se3
 from ..geometry.camera import Camera
+from ..ops.pose_opt_cuda import pose_opt_kernel
+from ..utils import timing
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -75,7 +82,28 @@ def pose_optimization(cam: Camera, Tcw0, pw, obs, inv_sigma2, valid,
     guarded=True rejects steps that do not reduce the robust cost at the
     proposed pose; guarded=False trusts the damped GN step (half the
     residual evaluations), for callers that gate on the inlier count.
+
+    CPU tensors take the plain body (`pose_optimization_reference`); CUDA
+    tensors launch the kernel.
     """
+    tr = timing.active()
+    tr.count("pose_opt.calls")
+    if pw.device.type == "cpu":
+        return pose_optimization_reference(cam, Tcw0, pw, obs, inv_sigma2,
+                                           valid, rounds=rounds, iters=iters,
+                                           guarded=guarded)
+    out = pose_opt_kernel(cam, Tcw0, pw, obs, inv_sigma2, valid,
+                          rounds=rounds, iters=iters, guarded=guarded,
+                          chi2_mono=CHI2_MONO, chi2_stereo=CHI2_STEREO)
+    tr.count("pose_opt.kernel")
+    return out
+
+
+def pose_optimization_reference(cam: Camera, Tcw0, pw, obs, inv_sigma2,
+                                valid, *, rounds: int = 4, iters: int = 10,
+                                guarded: bool = True):
+    """The plain body of `pose_optimization`, as torch ops on any device
+    (on a card, about 200 launches an iteration)."""
     stereo_mask = obs[..., 2] >= 0
     delta2 = torch.where(stereo_mask, CHI2_STEREO, CHI2_MONO)
     eye6 = 1e-5 * torch.eye(6, dtype=pw.dtype, device=pw.device)

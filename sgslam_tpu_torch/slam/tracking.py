@@ -8,8 +8,9 @@ Port of `sgslam_tpu/slam/tracking.py` (`extract_frame`,
 contract: local-point selection, then two rounds of projective search,
 duplicate resolution and motion-only BA. Each round's search is one
 launch of the fused Hamming search K1s (`ops/hamming_search.py`) on the
-GPU; the back-end pass adds two more (triangulation and duplicate
-fusion).
+GPU, and each round's motion-only BA one launch of the pose kernel
+(`ops/pose_opt_cuda.py`); the back-end pass adds two searches
+(triangulation and duplicate fusion).
 
 Spans on the active tracer (`utils/timing.active()`): `tracking.step` per
 frame of `Tracker.process`, with `tracking.local_points`,

@@ -62,7 +62,8 @@ def main() -> int:
         fn = getattr(cs, f"phase_{name}")
         args = [dev]
         if "kernels" in inspect.signature(fn).parameters:
-            args.append({"hamming_matrix": {}, "hamming_search": {}})
+            args.append({"hamming_matrix": {}, "hamming_search": {},
+                         "pose_opt": {}})
         if a.segments:
             rec.phase = name
         t0 = time.perf_counter()
