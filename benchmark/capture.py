@@ -5,7 +5,10 @@ calls made inside the measured window: its inputs and its outputs, held
 by reference (the program builds new tensors for every update, so a held
 input stays as the call saw it). The sample is a reservoir of fixed size
 drawn from the run's seed. The wrappers call the program's function and
-return its result unchanged; outside the window they only count.
+return its result unchanged; outside the window they only count. The
+`extract` layer is both front ends, `tracking.extract_frame` (a sample of
+kind "rgbd": gray, depth) and `tracking.extract_frame_stereo` (kind
+"stereo": gray, gray_r); a `track` sample carries its frame's view too.
 
 `Spans` wraps the two hand-written kernels' entry points in profiler
 ranges (`bench.k1s`, `bench.segsum`) and keeps each call's shapes, so
@@ -25,6 +28,8 @@ import torch
 # detector (a chunk's call holds four frames) and of the BA (the costliest
 # to recompute)
 LAYERS = {"extract": 8, "detect": 4, "cull": 8, "track": 8, "ba": 4}
+# a tracked frame whose extraction the window did not see
+NO_FRAME = {"kind": "rgbd", "gray": None, "depth": None}
 
 
 class Reservoir:
@@ -81,17 +86,21 @@ class Capture:
         from sgslam_tpu_torch.semantic import dynamic
         from sgslam_tpu_torch.slam import tracking
 
-        def extract(orig):
-            def f(cfg, gray, depth, device="cuda"):
-                out = orig(cfg, gray, depth, device)
-                self._keep("extract", lambda: dict(gray=gray, depth=depth,
-                                                   out=out))
-                if self.armed:
-                    self._frames[id(out.desc)] = (out.desc, gray, depth)
-                    while len(self._frames) > 32:
-                        self._frames.popitem(last=False)
-                return out
-            return f
+        def extract(kind, second):
+            # one reservoir for both paths: an extraction call is one
+            # item, whichever path made it
+            def wrap(orig):
+                def f(cfg, gray, other, device="cuda"):
+                    out = orig(cfg, gray, other, device)
+                    view = {"kind": kind, "gray": gray, second: other}
+                    self._keep("extract", lambda: dict(view, out=out))
+                    if self.armed:
+                        self._frames[id(out.desc)] = (out.desc, view)
+                        while len(self._frames) > 32:
+                            self._frames.popitem(last=False)
+                    return out
+                return f
+            return wrap
 
         def match(orig):
             def f(*a, **kw):
@@ -128,12 +137,12 @@ class Capture:
         def track(orig):
             def f(cfg, m, feats, Tcw_pred, device="cuda", fallback="host"):
                 out = orig(cfg, m, feats, Tcw_pred, device, fallback=fallback)
-                frame = self._frames.get(id(feats.desc), (None,) * 3)
-                self._keep("track", lambda: dict(m=m, feats=feats,
+                _, view = self._frames.get(id(feats.desc),
+                                           (None, NO_FRAME))
+                self._keep("track", lambda: dict(view, m=m, feats=feats,
                                                  Tcw_pred=Tcw_pred,
-                                                 fallback=fallback, out=out,
-                                                 gray=frame[1],
-                                                 depth=frame[2]))
+                                                 fallback=fallback,
+                                                 out=out))
                 return out
             return f
 
@@ -144,7 +153,10 @@ class Capture:
                 return out
             return f
 
-        _patch(tracking, "extract_frame", extract, self._undo)
+        _patch(tracking, "extract_frame", extract("rgbd", "depth"),
+               self._undo)
+        _patch(tracking, "extract_frame_stereo",
+               extract("stereo", "gray_r"), self._undo)
         _patch(dynamic, "match_prev_frame", match, self._undo)
         _patch(dynamic, "reject_dynamic_matched", reject, self._undo)
         _patch(tracking, "track_step", track, self._undo)

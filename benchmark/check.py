@@ -5,7 +5,9 @@ After the window has closed, each sampled call of a judged layer (see
 compared with what the program returned:
 
     keypoints  share of keypoint slots whose validity, position, level,
-               angle, descriptor or depth differ (front end)
+               angle, descriptor or depth differ (front end); of a
+               stereo frame also its right coordinate u_right, the SAD
+               search's disparity with its sub-pixel parabola
     boxes_px   widest gap of a detector box, in pixels; a box that is
                valid or of a class on one side only counts as the image's
                diagonal (semantic layer: detector)
@@ -28,8 +30,8 @@ check. The control (`control=True`) puts the reference computed with TF32
 in the program's place: the precision next below the configuration's
 float32 with TF32 off. Its tracking starts from its own TF32 extraction
 of the frame, as the reference in the program's place would (without the
-cull, which keep_mask judges): TF32 alone moves the optimised pose by an
-ulp and no association.
+cull, which keep_mask judges), by the frame's own path (RGB-D or stereo):
+TF32 alone moves the optimised pose by an ulp and no association.
 """
 
 from __future__ import annotations
@@ -82,11 +84,18 @@ def _pose_gap(a, b) -> float:
     return max(q, _gap(a[..., 4:], b[..., 4:]))
 
 
-def keypoints(prog, ref) -> tuple[int, int]:
-    """(slots that differ, slots valid on either side)."""
+# the fields `keypoints` compares, by the sample's front end
+FIELDS = {"rgbd": ("xy_raw", "level", "angle", "desc", "depth"),
+          "stereo": ("xy_raw", "level", "angle", "desc", "depth",
+                     "u_right")}
+
+
+def keypoints(prog, ref, kind: str) -> tuple[int, int]:
+    """(slots that differ, slots valid on either side), over the fields
+    of the front end `kind`."""
     either = prog.valid | ref.valid
     same = prog.valid == ref.valid
-    for f in ("xy_raw", "level", "angle", "desc", "depth"):
+    for f in FIELDS[kind]:
         a, b = getattr(prog, f), getattr(ref, f)
         e = _eq(a, b)
         same = same & (e.all(-1) if e.dim() > 1 else e)
@@ -116,6 +125,9 @@ class Judge:
 
     # each layer: [(program's output, reference's output)] per sample
     def extract(self, s):
+        if s["kind"] == "stereo":
+            return orb.extract_frame_stereo(self.cfg, s["gray"],
+                                            s["gray_r"])
         return orb.extract_frame(self.cfg, s["gray"].to(torch.float32),
                                  s["depth"])
 
@@ -176,7 +188,8 @@ class Judge:
 
         p = pairs("extract")
         if p:
-            bad = [keypoints(a, b) for a, b in p]
+            bad = [keypoints(a, b, s["kind"])
+                   for (a, b), s in zip(p, cap.samples("extract"))]
             out["keypoints"] = (sum(x for x, _ in bad)
                                 / max(1, sum(n for _, n in bad)))
         p = pairs("detect")

@@ -12,7 +12,11 @@ limits or one metric sits in a file of its own under this folder:
     runners/<kind>.py         the entry kind a configuration names
 
 so that a new cell, mix or metric is new files and new entries in
-`BENCHMARK.json`, and no edit.
+`BENCHMARK.json`, and no edit. A runner declares what it hands the
+program of each frame (`Runner.views`: ("gray", "depth") for RGB-D,
+("gray", "gray_r") for a rectified stereo pair); the harness renders the
+right view, `traffic.Frames.gray_r`, only for a runner that declares it
+(`runners/__init__.py`).
 """
 
 from __future__ import annotations

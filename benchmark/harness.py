@@ -67,7 +67,8 @@ def run(spec: core.Spec, seed: int, seconds: float, trace_on: bool,
     n = traffic.frames_needed(spec.traffic, seconds, lead,
                               int(r.get("chunk", 1)))
     t_render = time.perf_counter()
-    frames = traffic.render(spec.traffic, rcfg.camera, n, seed, device)
+    frames = traffic.render(spec.traffic, rcfg.camera, n, seed, device,
+                            views=runner_mod.Runner.views)
     t_built = time.perf_counter()
     print(f"set-up: {n} frames rendered in {t_built - t_render:.2f} s, "
           f"{t_render - t0:.2f} s before", file=sys.stderr, flush=True)
@@ -198,17 +199,23 @@ def _fmt(v):
     return repr(v)
 
 
-def tiny(spec: core.Spec, width: int = 320, height: int = 240) -> core.Spec:
+def tiny(spec: core.Spec, width: int = 320) -> core.Spec:
     """A copy of `spec` at a size a CPU rehearsal holds: the camera scaled
-    to width x height (the Kinect's field of view kept), fewer features,
-    map slots, a short warm-up and frequent keyframes."""
+    by s = width / its width (fx, fy and bf times s, so a stereo camera
+    keeps its baseline; cx' + 0.5 = (cx + 0.5) * s and cy alike, pixel
+    centres kept; the height times s, rounded), fewer features, map slots,
+    a short warm-up and frequent keyframes."""
     import copy
 
     s = copy.copy(spec)
     d = copy.deepcopy(spec.config)
-    f = 525.0 * width / 640.0
-    d["camera"].update(fx=f, fy=f, cx=width / 2 - 0.5, cy=height / 2 - 0.5,
-                       bf=40.0 * width / 640.0, width=width, height=height)
+    c = d["camera"]
+    w0 = c["width"]
+    c.update(fx=c["fx"] * width / w0, fy=c["fy"] * width / w0,
+             cx=(c["cx"] + 0.5) * width / w0 - 0.5,
+             cy=(c["cy"] + 0.5) * width / w0 - 0.5,
+             bf=c["bf"] * width / w0, width=width,
+             height=round(c["height"] * width / w0))
     d["orb"].update(n_features=600, max_keypoints=640)
     d["capacity"].update(max_keyframes=48, max_points=8192,
                          max_obs_per_kf=640, local_window=4,

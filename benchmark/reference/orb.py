@@ -1,5 +1,7 @@
 """ORB extraction with its RGB-D depth lookup: `sgslam_tpu_torch/ops/{pattern,image,fast,orb}.py`
-and `slam/tracking.py:extract_frame`.
+and `slam/tracking.py:extract_frame`; its stereo frame construction,
+`slam/tracking.py:extract_frame_stereo`, with the SAD search of
+`stereo.py`.
 
 Frozen copy of the files named above as of commit 1275b16, with
 their imports pointed at this folder. It imports nothing of the
@@ -437,3 +439,15 @@ def extract_frame(cfg, gray, depth):
     device (`tracking.extract_frame`)."""
     feats = extract(gray, cfg.orb, cfg.camera)
     return attach_rgbd(feats, depth.to(torch.float32), cfg.camera)
+
+
+def extract_frame_stereo(cfg, gray_l, gray_r):
+    """ORB extraction on the left image + the rectified epipolar SAD
+    search in the right one, on gray_l's device
+    (`tracking.extract_frame_stereo`)."""
+    from .stereo import attach_stereo
+
+    gray_l = gray_l.to(torch.float32)
+    feats = extract(gray_l, cfg.orb, cfg.camera)
+    return attach_stereo(cfg.camera, feats, gray_l,
+                         gray_r.to(gray_l.device, torch.float32))

@@ -15,10 +15,16 @@ from . import program_config
 
 class Runner:
     kind = "chunked"
+    views = ("gray", "depth")
+
+    @staticmethod
+    def _tracker():
+        """The program's chunked runner class that this runner drives."""
+        from sgslam_tpu_torch.slam.scan_pipeline import ChunkedSemanticTracker
+        return ChunkedSemanticTracker
 
     def __init__(self, doc: dict, frames, device, capture):
         from sgslam_tpu_torch.models.detector import Detector2D
-        from sgslam_tpu_torch.slam import scan_pipeline
         from sgslam_tpu_torch.slam.loop_closing import LoopCloser
 
         r = doc["runner"]
@@ -29,11 +35,15 @@ class Runner:
         self.frames = frames
         det = Detector2D(cfg.detector, device=device)
         capture.watch_detector(det)
-        self.ct = scan_pipeline.ChunkedSemanticTracker(
+        self.ct = self._tracker()(
             cfg, det, chunk=self.chunk, fetch_every=int(r["fetch_every"]),
             loop=LoopCloser(cfg, device=device) if r["loop"] else None,
             device=device)
         self.i = 0
+
+    def _views(self, sl):
+        """The declared views of the frames `sl` (an index or a slice)."""
+        return [getattr(self.frames, v)[sl] for v in self.views]
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -44,20 +54,18 @@ class Runner:
         if i + c > len(self.frames):
             raise RuntimeError(f"out of frames: the window wanted frame "
                                f"{i + c - 1} of {len(self.frames)}")
-        self.ct.process_chunk(self.frames.gray[i:i + c],
-                              self.frames.depth[i:i + c])
+        self.ct.process_chunk(*self._views(slice(i, i + c)))
         self.i += c
 
     def setup(self):
         """Bootstrap frame by frame: `boot_frames`, and on until the
         tracker is tracking (a walker in front of the camera can hold off
         the map's first keyframe), then the warm chunks and a flush."""
-        f = self.frames
         while self.i < self.boot or self.ct.inner.state != "OK":
             if self.i >= 4 * self.boot + self.warm:
                 raise RuntimeError(f"the tracker did not initialize in "
                                    f"{self.i} bootstrap frames")
-            self.ct.bootstrap(f.gray[self.i], f.depth[self.i])
+            self.ct.bootstrap(*self._views(self.i))
             self.i += 1
         end = self.i + self.warm
         while self.i < end:

@@ -17,6 +17,7 @@ from . import program_config
 
 class Runner:
     kind = "live"
+    views = ("gray", "depth")
 
     def __init__(self, doc: dict, frames, device, capture):
         from sgslam_tpu_torch.models.detector import Detector2D
@@ -40,9 +41,9 @@ class Runner:
         if i >= len(self.frames):
             raise RuntimeError(f"out of frames: the window wanted frame {i} "
                                f"of {len(self.frames)}")
-        g = self.frames.gray[i]
+        g, d = (getattr(self.frames, v)[i] for v in self.views)
         rgb = np.broadcast_to(g[..., None], g.shape + (3,))
-        self.s.track_rgbd(g, self.frames.depth[i], rgb=rgb)
+        self.s.track_rgbd(g, d, rgb=rgb)
         self.i += 1
         if self.s.on_stage is not self._hooks[0]:
             # a reset after an early loss rebuilt the system's hooks

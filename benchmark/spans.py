@@ -307,9 +307,9 @@ def profile(spec, seed: int, seconds: float, device) -> dict:
     lead = int(r["boot_frames"]) + int(r["warm_frames"])
     n = traffic.frames_needed(spec.traffic, seconds, lead,
                               int(r.get("chunk", 1)))
-    frames_ = traffic.render(spec.traffic, ref_config.from_file(doc).camera,
-                             n, seed, device)
     runner_mod = spec.runner()
+    frames_ = traffic.render(spec.traffic, ref_config.from_file(doc).camera,
+                             n, seed, device, views=runner_mod.Runner.views)
     runner = runner_mod.Runner(doc, frames_, device,
                                capture_mod.Capture(seed))
     try:

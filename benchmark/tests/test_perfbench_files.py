@@ -3,6 +3,7 @@ BENCHMARK.json names is found by name and parses, and the file keeps the
 contract's shapes and character rules."""
 
 import dataclasses
+import importlib
 import json
 
 import pytest
@@ -27,6 +28,21 @@ def test_top_level_keys_and_names():
     assert 1 <= BENCH["run_seconds"] <= 51
 
 
+def runner_of_its_family(spec):
+    """The runner module that the configuration names declares known views
+    and the family (`Runner.kind`) that the metric readers test."""
+    kind = spec.config["runner"]["kind"]
+    runner = spec.runner().Runner
+    if kind in ("chunked", "live"):
+        # the module is itself a family
+        assert runner.kind == kind
+    else:
+        # a runner of another module subclasses its family's runner
+        family = importlib.import_module(f"benchmark.runners.{runner.kind}")
+        assert issubclass(runner, family.Runner)
+    assert set(runner.views) <= {"gray", "depth", "gray_r"}
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_found_by_name(cell):
     spec = core.Spec(BENCH, cell)
@@ -34,7 +50,7 @@ def test_cell_files_found_by_name(cell):
     assert spec.traffic["name"] == spec.cell["traffic"]
     assert set(spec.limits["limits"]) == set(
         harness.check.NUMBERS)
-    assert spec.runner().Runner.kind == spec.config["runner"]["kind"]
+    runner_of_its_family(spec)
     e2e = spec.metric_names(False)
     assert "setup_s" in e2e and len(e2e) >= 2
     layer = spec.metric_names(True)
@@ -62,21 +78,86 @@ def test_every_metric_has_a_reader_and_a_valid_entry():
             assert m["unit"] == "%"
 
 
-@pytest.mark.parametrize("cfg", [c["name"] for c in BENCH["configs"]])
-def test_configuration_is_the_ports_synthetic_config(cfg):
-    """The file holds every setting of `synthetic_config(640, 480)`, the
-    port's defaults with the synthetic room's two assumed values."""
+GROUPS = ("camera", "orb", "tracker", "matcher", "dynamic", "detector",
+          "mapping", "capacity", "loop", "mesh")
+# the configurations that run the port's synthetic Kinect preset as it is
+SYNTHETIC = ("rgbd640_chunked", "rgbd640_live")
+
+
+def _doc(cfg):
+    entry = next(c for c in BENCH["configs"] if c["name"] == cfg)
+    return core.load_json(core.REPO / entry["file"])
+
+
+def holds_a_deployment(doc):
+    """Each group with exactly the fields of the port's dataclass, a
+    program configuration that builds, a named source and a stated
+    guarantee, and every assumed value a key of the file with that value."""
     from sgslam_tpu_torch import config as C
 
-    entry = next(c for c in BENCH["configs"] if c["name"] == cfg)
-    doc = core.load_json(core.REPO / entry["file"])
+    from benchmark import runners
+
+    built = runners.program_config(doc)
+    preset = C.synthetic_config()
+    for group in GROUPS:
+        cls = type(getattr(preset, group))
+        assert set(doc[group]) == {f.name for f in dataclasses.fields(cls)}, \
+            group
+        assert dataclasses.asdict(getattr(built, group)) == doc[group], group
+    assert doc["source"] and doc["source_part"]
+    assert doc["guarantees"]["ate_rmse_m"] > 0
+    assert doc["guarantees"]["source"]
+    assert doc["assumed"]["why"]
+    for key, value in doc["assumed"].items():
+        if key == "why":
+            continue
+        node = doc
+        for part in key.split("."):
+            assert part in node, key
+            node = node[part]
+        assert node == value, key
+
+
+def is_the_synthetic_kinect(doc):
+    """Every setting of `synthetic_config(640, 480)`, the port's defaults
+    with the synthetic room's two assumed values."""
+    from sgslam_tpu_torch import config as C
+
     ref = C.synthetic_config(640, 480)
-    for group in ("camera", "orb", "tracker", "matcher", "dynamic",
-                  "detector", "mapping", "capacity", "loop", "mesh"):
+    for group in GROUPS:
         assert doc[group] == dataclasses.asdict(getattr(ref, group)), group
     assert doc["depth_map_factor"] == ref.depth_map_factor
     assert doc["fps"] == ref.fps
     assert doc["guarantees"]["ate_rmse_m"] == 0.05
+
+
+@pytest.mark.parametrize("cfg", [c["name"] for c in BENCH["configs"]])
+def test_configuration_file_holds_a_deployment(cfg):
+    """What every configuration file holds, whatever its deployment."""
+    doc = _doc(cfg)
+    assert doc["name"] == cfg
+    holds_a_deployment(doc)
+
+
+@pytest.mark.parametrize("cfg", SYNTHETIC)
+def test_configuration_is_the_ports_synthetic_config(cfg):
+    """The configurations named in SYNTHETIC run the port's synthetic
+    Kinect preset as it is."""
+    is_the_synthetic_kinect(_doc(cfg))
+
+
+def test_configuration_checks_take_a_stereo_deployment():
+    """A stereo camera at other widths holds what every file must hold,
+    and is no synthetic Kinect."""
+    from benchmark.tests.test_perfbench_stereo import stereo_doc
+
+    doc = stereo_doc()
+    holds_a_deployment(doc)
+    with pytest.raises(AssertionError):
+        is_the_synthetic_kinect(doc)
+    doc["assumed"]["orb.max_keypoints"] = 1024
+    with pytest.raises(AssertionError):
+        holds_a_deployment(doc)
 
 
 def test_extra_cell_loads_from_new_files_only(tmp_path):

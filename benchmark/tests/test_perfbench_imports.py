@@ -31,6 +31,9 @@ def test_no_module_of_the_benchmark_loads_jax_or_the_jax_package():
     mods = sorted(p.relative_to(core.REPO).with_suffix("")
                   for p in core.HERE.rglob("*.py")
                   if "tests" not in p.parts and p.parent.name != "metrics")
+    names = {".".join(m.parts) for m in mods}
+    assert {"benchmark.reference.stereo",
+            "benchmark.runners.chunked_stereo"} <= names
     imports = "\n".join(f"import {'.'.join(m.parts)}" for m in mods)
     readers = ("from benchmark import core\n"
                "spec = core.Spec(core.load_bench(), 'chunked.slow_walker')\n"
@@ -45,6 +48,7 @@ def test_no_module_of_the_benchmark_loads_jax_or_the_jax_package():
 def test_the_reference_loads_nothing_of_the_program():
     mods = sorted(p.stem for p in (core.HERE / "reference").glob("*.py")
                   if p.stem != "__init__")
+    assert {"orb", "stereo"} <= set(mods)
     loaded = _loaded("\n".join(f"import benchmark.reference.{m}"
                                for m in mods))
     assert "sgslam_tpu_torch" not in loaded

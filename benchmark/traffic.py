@@ -14,6 +14,12 @@ revisits and to what the walkers hide, and a seed that moved them changed
 the work (the number of loops closed in a window, and with it frames/s).
 The seed draws each walker's look, its texture seed. The frames cover
 `cap_fps` frames a second of the window; a run that needs more fails.
+
+A runner that declares the view "gray_r" (`runners/__init__.py`) gets a
+rectified right view beside each frame: the same scene, walkers and
+intrinsics, rendered from the left pose moved by the baseline bf / fx
+along the camera's +x axis. It draws nothing more from the seed, and a
+run without it renders nothing more.
 """
 
 from __future__ import annotations
@@ -71,23 +77,38 @@ def frames_needed(mix: dict, seconds: float, lead: int, chunk: int) -> int:
 
 class Frames:
     """A run's frames in host memory: gray [n, H, W] in [0, 1] and depth
-    [n, H, W] (meters, 0 = invalid) float32, and the ground truth T_wc
-    [n, 7]."""
+    [n, H, W] (meters, 0 = invalid) float32, the ground truth T_wc [n, 7],
+    and gray_r [n, H, W], the rectified right view, or None where the
+    runner does not declare it."""
 
-    def __init__(self, gray, depth, T_wc):
+    def __init__(self, gray, depth, T_wc, gray_r=None):
         self.gray, self.depth, self.T_wc = gray, depth, T_wc
+        self.gray_r = gray_r
 
     def __len__(self):
         return self.gray.shape[0]
 
 
-def render(mix: dict, cam, n: int, seed: int, device, batch: int = 16):
+def right_poses(cam, T_wc):
+    """The right camera's poses of a rectified pair whose left poses are
+    T_wc [n, 7]: the same orientation, the centre moved by the baseline
+    bf / fx along the left camera's +x axis."""
+    off = torch.zeros_like(T_wc[:, 4:7])
+    off[:, 0] = cam.bf / cam.fx
+    return torch.cat([T_wc[:, :4],
+                      T_wc[:, 4:7] + se3.quat_rotate(T_wc[:, :4], off)], -1)
+
+
+def render(mix: dict, cam, n: int, seed: int, device, batch: int = 16,
+           views=("gray", "depth")):
     """The mix's first n frames for `seed`, rendered on `device`, `batch`
-    frames at a time, and held in host memory."""
+    frames at a time, and held in host memory; with "gray_r" in `views`
+    the right view of each frame too."""
     T_wc, people = walk(mix, n, seed)
     planes = tuple(scene.Plane(*map(float, p)) for p in mix["planes"])
     gray = np.empty((n, cam.height, cam.width), np.float32)
     depth = np.empty_like(gray)
+    gray_r = np.empty_like(gray) if "gray_r" in views else None
     T = torch.from_numpy(T_wc).to(device)
     P = torch.from_numpy(people).to(device)
     for b in range(0, n, batch):
@@ -95,4 +116,8 @@ def render(mix: dict, cam, n: int, seed: int, device, batch: int = 16):
                                    planes)
         gray[b:b + batch] = g.cpu().numpy()
         depth[b:b + batch] = d.cpu().numpy()
-    return Frames(gray, depth, T_wc)
+        if gray_r is not None:
+            g, _ = scene.render_frames(cam, right_poses(cam, T[b:b + batch]),
+                                       P[b:b + batch], planes)
+            gray_r[b:b + batch] = g.cpu().numpy()
+    return Frames(gray, depth, T_wc, gray_r)
