@@ -61,7 +61,10 @@ The per-frame F-RANSAC draws come from `keys` (`split` of the carry's key
 into chunk + 1 keys per chunk, `seed(7)` at bootstrap and `seed(b0)` in the
 seam replay, `draw` per cull), so tests replay the reference's
 `jax.random` keys. A chunk never writes into the map it is given (every
-map update builds new tensors), so the seam replay needs no copy.
+map update builds new tensors), so the seam replay needs no copy. Nor does
+it extract or detect again: it takes each chunk's front end (`ChunkFront`,
+the features and boxes, functions of the images alone) as the chunk's
+first call left it, and runs the cull and the scans anew.
 
 The stereo runners (`ChunkedStereoTracker`, `ChunkedSemanticStereoTracker`)
 take (lefts, rights) where the RGB-D ones take (grays, depths): extraction
@@ -150,12 +153,27 @@ def _stack(trees):
         for f in dataclasses.fields(trees[0])})
 
 
+@dataclasses.dataclass
+class ChunkFront:
+    """A chunk's front end: its frames' features before the cull and the
+    detector's (cull, dynamic, object) boxes. The chunk function fills an
+    empty one and takes a filled one as it is, in place of extracting and
+    detecting again."""
+
+    feats: list | None = None
+    boxes: tuple | None = None
+
+
 def make_track_chunk(cfg: SlamConfig, detector=None, semantic: bool = False,
                      stereo: bool = False, only_tracking: bool = False,
                      keys=None, device="cuda", on_stage=None,
                      extract=None):
-    """Build the per-chunk function fn(m, carry, grays, depths, n_live=None)
-    -> (m', carry', packed [c+1, 9], feats_last, kf_dyn_boxes, kf_obj_boxes).
+    """Build the per-chunk function fn(m, carry, grays, depths, n_live=None,
+    front=None) -> (m', carry', packed [c+1, 9], feats_last, kf_dyn_boxes,
+    kf_obj_boxes). `front`, a `ChunkFront`, receives the chunk's features
+    and boxes when empty and replaces their extraction and detection when
+    filled (the seam replay's re-track of the same frames): the spans and
+    the marks around them stay, but for the stereo extraction's own.
 
     Packed rows are [pose(7), n_inliers, is_kf] per frame plus a stats row
     [next_kf, next_pt, n_kf_inserted, i1, i2, 0...]. The first flagged
@@ -177,7 +195,12 @@ def make_track_chunk(cfg: SlamConfig, detector=None, semantic: bool = False,
     `tracking.scans` and `tracking.rescans` (passes run again with the
     fallback). stereo=True reads (grays, depths) as the
     rectified (left, right) pairs and extracts with
-    `tracking.extract_frame_stereo` (depth from the SAD search)."""
+    `tracking.extract_frame_stereo` (depth from the SAD search); its
+    stages are "begin", then ("extract", "stereo") per frame, each frame's
+    ORB half and SAD search (the `front_end.stereo` span), marked from
+    inside `extract_frame_stereo` through the tracer's `on_stage`, which
+    the chunk sets to `on_stage` around its extraction loop alone, then
+    "detector" and on as above. A given `extract` marks what it calls."""
     dev = resolve_device(device)
     keys = keys if keys is not None else GeneratorKeys()
     t = cfg.tracker
@@ -187,23 +210,37 @@ def make_track_chunk(cfg: SlamConfig, detector=None, semantic: bool = False,
     extract = extract or (tracking.extract_frame_stereo if stereo
                           else tracking.extract_frame)
 
-    def chunk_fn(m, carry: TrackCarry, grays, depths, n_live=None):
+    def chunk_fn(m, carry: TrackCarry, grays, depths, n_live=None,
+                 front: ChunkFront | None = None):
         tr = timing.active()
         grays = _as_tensor(grays, dev).to(torch.float32)
         depths = _as_tensor(depths, dev).to(torch.float32)
         n = grays.shape[0]
         n_live = n if n_live is None else int(n_live)
+        reuse = front is not None and front.feats is not None
         mark("begin")
-        with tr.span("front_end.extract"):
-            feats = [extract(cfg, grays[j], depths[j], dev)
-                     for j in range(n)]
-        mark("extract")
+        # the tracer carries the stage hook through the extraction loop
+        # alone: `extract_frame_stereo` marks each frame's two halves
+        prev, tr.on_stage = tr.on_stage, on_stage
+        try:
+            with tr.span("front_end.extract"):
+                feats = (front.feats if reuse else
+                         [extract(cfg, grays[j], depths[j], dev)
+                          for j in range(n)])
+        finally:
+            tr.on_stage = prev
+        if not stereo:
+            mark("extract")
         with tr.span("semantic.detector"):
-            if detector is not None:
+            if reuse:
+                cull_b, dyn_b, obj_b = front.boxes
+            elif detector is not None:
                 cull_b, dyn_b, obj_b = detector.detect_batch(grays, W, H)
             else:
                 e = Boxes.empty(B, dev)
                 cull_b = dyn_b = obj_b = _stack([e] * n)
+        if front is not None and not reuse:
+            front.feats, front.boxes = feats, (cull_b, dyn_b, obj_b)
         mark("detector")
 
         with tr.span("semantic.cull"):
@@ -523,11 +560,12 @@ class _ChunkRunnerBase:
                 self._compact_now()
             grays = _as_tensor(grays, self.device).to(torch.float32)
             depths = _as_tensor(depths, self.device).to(torch.float32)
+            front = ChunkFront()
             (self._map, self._carry, packed, feats_last, kf_dyn,
              kf_obj) = self._fn(self._map, self._carry, grays, depths,
-                                n_live)
+                                n_live, front)
             self._inflight.append((_start_fetch([packed]), feats_last,
-                                   kf_dyn, kf_obj, grays, depths))
+                                   kf_dyn, kf_obj, grays, depths, front))
             if len(self._inflight) >= self.fetch_every:
                 self._drain_all()
 
@@ -546,7 +584,7 @@ class _ChunkRunnerBase:
         packed_np = [_finish_fetch(r[0])[0] for r in recs[::-1]][::-1]
         tail_lost = False
         self._events_waiting = sum(int(pk[-1, 2]) for pk in packed_np)
-        for (_, feats_last, kf_dyn, kf_obj, grays, depths), pk in zip(
+        for (_, feats_last, kf_dyn, kf_obj, grays, depths, _), pk in zip(
                 recs, packed_np):
             c = pk.shape[0] - 1
             poses = pk[:c, :7]
@@ -637,8 +675,9 @@ class _ChunkRunnerBase:
 
     def _replay_seam(self, recs, win_start: int):
         """Re-track the post-closure seam frames of the window on the
-        corrected map (keyframe flags suppressed); returns the replayed tail
-        frame's lost flag when the replay reached the window's end."""
+        corrected map (keyframe flags suppressed), from each chunk's kept
+        front end; returns the replayed tail frame's lost flag when the
+        replay reached the window's end."""
         if self._seam_frame < 0:
             return None
         c = self.chunk
@@ -674,7 +713,7 @@ class _ChunkRunnerBase:
         outs = []
         for k in range(k0, len(recs)):
             m, carry, packed, _, _, _ = self._fn(m, carry, recs[k][4],
-                                                 recs[k][5], 0)
+                                                 recs[k][5], 0, recs[k][6])
             outs.append(packed)
         outs = [o.cpu().numpy() for o in outs]
 

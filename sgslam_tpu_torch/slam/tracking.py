@@ -17,7 +17,9 @@ frame of `Tracker.process`, with `tracking.local_points`,
 `tracking.search` and `tracking.pose_opt` inside `track_step`;
 `backend.insert` per keyframe insertion, with `backend.cull`,
 `backend.triangulate`, `backend.fuse`, `backend.ba` and `backend.kf_cull`
-inside `process_new_keyframe`.
+inside `process_new_keyframe`; `front_end.stereo` around the SAD search of
+`extract_frame_stereo`, which counts `stereo.calls` and
+`stereo.candidates`.
 
 The reference's `lax.cond`s are Python `if`s here: the brute-force
 fallback on the stage-1 inlier count (one host read per frame), and the
@@ -44,6 +46,11 @@ from ..utils import timing
 
 NO_POINT = ms.NO_POINT
 
+# candidate disparities the SAD search tries per keypoint slot, from
+# `stereo_match`'s defaults (the ones `attach_stereo` searches with)
+_SAD = stereo_ops.stereo_match.__kwdefaults__
+STEREO_DISPARITIES = len(range(0, _SAD["max_disparity"], _SAD["step"]))
+
 
 def _as_tensor(x, device):
     """numpy arrays are copied (they may be read-only views of another
@@ -66,12 +73,30 @@ def extract_frame_stereo(cfg: SlamConfig, gray_l, gray_r,
     """Stereo frame construction: extract on the left image, fill
     u_right/depth by rectified epipolar SAD search in the right image
     (the stereo Frame constructor, Frame.cc:87-127 + ComputeStereoMatches
-    Frame.cc:716-890)."""
+    Frame.cc:716-890).
+
+    The search is a `front_end.stereo` span on the active tracer; it counts
+    `stereo.calls` and `stereo.candidates` (keypoint slots x candidate
+    disparities, from the shapes: nothing is read from the device). Where
+    the tracer carries a stage hook (`Metrics.on_stage`, set by the stereo
+    chunk around its extraction loop), it is called with "extract" after
+    the ORB half and "stereo" after the search."""
     dev = resolve_device(device)
+    tr = timing.active()
+    mark = tr.on_stage
     gray_l = _as_tensor(gray_l, dev).to(torch.float32)
     feats = orb.extract(gray_l, cfg.orb, cfg.camera)
-    return stereo_ops.attach_stereo(
-        cfg.camera, feats, gray_l, _as_tensor(gray_r, dev).to(torch.float32))
+    if mark is not None:
+        mark("extract")
+    tr.count("stereo.calls")
+    tr.count("stereo.candidates", feats.valid.shape[0] * STEREO_DISPARITIES)
+    with tr.span("front_end.stereo"):
+        feats = stereo_ops.attach_stereo(
+            cfg.camera, feats, gray_l,
+            _as_tensor(gray_r, dev).to(torch.float32))
+    if mark is not None:
+        mark("stereo")
+    return feats
 
 
 def extract_frame_mono(cfg: SlamConfig, gray, device="cuda") -> orb.Features:

@@ -85,11 +85,17 @@ _OFF = contextlib.nullcontext()
 
 class Metrics:
     """Counters, and spans while on. `listeners` are called with (span
-    name, True) as a recorded span opens and (name, False) as it closes."""
+    name, True) as a recorded span opens and (name, False) as it closes.
+    `on_stage`, None by default, is a stage hook that a caller lends to
+    the code below it for a block, on or off: the stereo chunk sets its
+    stage hook here around its extraction loop, so that
+    `tracking.extract_frame_stereo`, whose signature is fixed, marks its
+    two halves."""
 
     def __init__(self):
         self.counters: dict[str, int] = defaultdict(int)
         self.on = False
+        self.on_stage = None
         self.spans: list[Span] = []
         self.listeners: list = []
         self._stack: list[int] = []

@@ -241,6 +241,50 @@ def test_chunk_fn_same_features(geo):
     assert flagged >= 1, "no keyframe was inserted in-chunk"
 
 
+def test_chunk_fn_reuses_a_kept_front_end(geo):
+    """A `ChunkFront` that a chunk's first call filled stands in for the
+    extraction and the detection of a second call over the same frames
+    (the seam replay's): the same outputs to the bit, and the same marks,
+    with no frame extracted and no batch detected again."""
+    calls = {"extract": 0, "detect": 0}
+    det = tdet.Detector2D(TCFG.detector, pretrained=False, device="cpu")
+    detect = det.detect_batch
+
+    def counted_detect(*a):
+        calls["detect"] += 1
+        return detect(*a)
+    det.detect_batch = counted_detect
+
+    def extract(cfg, gray, depth, device):
+        calls["extract"] += 1
+        return ttr.extract_frame(cfg, gray, depth, device)
+    marks = []
+    fn = tsp.make_track_chunk(TCFG, det, semantic=True, device="cpu",
+                              on_stage=marks.append, extract=extract)
+    lo = geo["boot"]
+    g = np.stack([f[0] for f in geo["frames"][lo:lo + CHUNK]])
+    d = np.stack([f[1] for f in geo["frames"][lo:lo + CHUNK]])
+    front = tsp.ChunkFront()
+    runs = []
+    for want in ({"extract": CHUNK, "detect": 1},) * 2:
+        del marks[:]
+        out = fn(convert.map_from_numpy(geo["snap"][0]),
+                 convert.track_carry_from_numpy(geo["snap"][1]), g, d,
+                 None, front)
+        assert calls == want
+        assert len(front.feats) == CHUNK and len(front.boxes) == 3
+        runs.append((_tree_np(out[0]), _tree_np(out[1].Tcw),
+                     out[2].numpy(), _tree_np(out[3]), list(marks)))
+    (m1, t1, p1, f1, k1), (m2, t2, p2, f2, k2) = runs
+    np.testing.assert_array_equal(p1, p2)
+    np.testing.assert_array_equal(t1, t2)
+    for k in m1:
+        np.testing.assert_array_equal(m1[k], m2[k], err_msg=k)
+    for k in f1:
+        np.testing.assert_array_equal(f1[k], f2[k], err_msg=k)
+    assert k1 == k2 and k1[:4] == ["begin", "extract", "detector", "cull"]
+
+
 def test_chunked_tracker_matches(geo):
     """Identical keyframe frames; the tail is tracked; the reference's
     ATE gate holds for both."""
