@@ -6,9 +6,10 @@
 Phases, each of which fails the run if it fails:
   1. build every CUDA source of the port (`csrc/hamming.cu`, K1,
      `csrc/hamming_search.cu`, the fused search K1s,
-     `csrc/segment_sum.cu`, the deterministic segment sum, and
-     `csrc/pose_opt.cu`, motion-only BA in one launch), one nvcc each,
-     started together;
+     `csrc/segment_sum.cu`, the deterministic segment sum,
+     `csrc/pose_opt.cu`, motion-only BA in one launch, and
+     `csrc/fast_detect.cu`, FAST detection of a whole pyramid in one
+     launch), one nvcc each, started together;
   2. hold K1 against its plain PyTorch version on the card at every shape
      that the phases' configurations give it: tracking and duplicate
      fusion (local points x keypoints) and triangulation (keypoints x
@@ -25,7 +26,12 @@ Phases, each of which fails the run if it fails:
      and triangulation shapes; hold the pose kernel against the plain
      body of `pose_optimization` on the card at track_step's two calls
      (stereo, mono and mixed rows; poses within 1e-5, inlier masks equal
-     but for rows at the gate) and time both by CUDA-graph replay;
+     but for rows at the gate) and time both by CUDA-graph replay; hold
+     the FAST kernel against the plain detection to the bit on both
+     cameras' pyramids (640x480, 752x480) and two planted images at cells
+     of 8, 16 and 32, with no host wait, count its launches on
+     `tracking.extract_frame` (one a frame), and time it by CUDA-graph
+     replay beside its bound (the levels' bytes) and the plain version;
   4. drive the main path at full width: 60 frames of the synthetic room at
      640x480 through `Tracker` with its defaults (1000 features, 1024
      keypoints, 4096 local points, the keyframe back-end after every
@@ -142,7 +148,8 @@ each path of 13 and 18, both calls of 15, each harness of 19 that runs in
 this process) and read just after; each path that runs the BA, the pose
 graph or the mapper must have launched the segment sum. The `kernels`
 line carries phase 10's counts (the timed window of bench.py's schedule),
-where K1 must not launch: every search goes through K1s. Phase 7's
+where K1 must not launch: every search goes through K1s, and the FAST
+kernel must launch at least once a frame. Phase 7's
 `System` runs with loop closing on (its default), so its frame times
 include the loop closer's keyframe database work.
 
@@ -288,7 +295,8 @@ def _segment_step(op: str) -> str:
 
 def phase_build():
     """Build every CUDA source at once (nvcc runs outside the GIL) and load
-    K1, K1s, the segment sum and the pose kernel."""
+    K1, K1s, the segment sum, the pose kernel and the FAST kernel."""
+    from sgslam_tpu_torch.ops import fast_cuda as fc
     from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.ops import hamming_search as hs
     from sgslam_tpu_torch.ops import pose_opt_cuda as po
@@ -298,13 +306,15 @@ def phase_build():
     sources = [(hc.CSRC / "hamming.cu", ()),
                (hc.CSRC / "hamming_search.cu", ()),
                (hc.CSRC / "segment_sum.cu", ()),
-               (hc.CSRC / "pose_opt.cu", po.FLAGS)]
+               (hc.CSRC / "pose_opt.cu", po.FLAGS),
+               (hc.CSRC / "fast_detect.cu", ())]
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(lambda s: hc.build_library(True, *s), sources))
     hc.hamming_kernel.load()
     hs.hamming_search_kernel.load()
     segment.segment_kernel.load()
     po.pose_opt_kernel.load()
+    fc.fast_detect_kernel.load()
     print(f"[build] {', '.join(s.name for s, _ in sources)} built and loaded "
           f"in {time.perf_counter() - t0:.2f} s")
 
@@ -624,6 +634,131 @@ def phase_pose_opt(dev):
     return entry
 
 
+def fast_images(dev):
+    """The FAST kernel's inputs: a rendered frame of each camera the
+    benchmark runs (the RGB-D 640x480 and the stereo rig's 752x480 left
+    view) and, at 640x480, an image of five grey values (plateaus and many
+    equal scores) and the same with a NaN patch, as (label, image)."""
+    import torch
+
+    from sgslam_tpu_torch import config
+    from sgslam_tpu_torch.io import synthetic as syn
+
+    out = []
+    for w, h in ((640, 480), (752, 480)):
+        cam = config.synthetic_config(w, h).camera
+        gray, _ = syn.render_frame(cam, syn.make_trajectory(30, dev)[7])
+        out.append((f"rendered {w}x{h}", gray.to(torch.float32)))
+    rng = np.random.default_rng(5)
+    flat = torch.from_numpy((np.round(rng.random((480, 640)) * 4) / 4)
+                            .astype(np.float32)).to(dev)
+    out.append(("five grey values 640x480", flat))
+    nan = flat.clone()
+    nan[100:103, 200:230] = float("nan")
+    out.append(("NaN patch 640x480", nan))
+    return out
+
+
+def phase_fast_detect(dev):
+    """The FAST kernel against the plain detection
+    (`orb.detect_cells_reference`) on the card, on both cameras' pyramids
+    and two planted images, at cells of 8, 16 and 32: every bit of the
+    cell scores and indices equal, one launch a call, no host wait. Then
+    the main path's front end (`tracking.extract_frame`) on 8 frames of
+    each camera: one launch a frame, `fast.kernel` equal to `fast.calls`,
+    and the device operations of one extraction. Then its time by graph
+    replay beside its bound (the levels' bytes read once, the outputs
+    written once) and the plain version's device operations and time; the
+    kernels line's `fast_detect` entry."""
+    import torch
+
+    from sgslam_tpu_torch import config
+    from sgslam_tpu_torch.io import synthetic as syn
+    from sgslam_tpu_torch.ops import fast_cuda as fc
+    from sgslam_tpu_torch.ops import image, orb
+    from sgslam_tpu_torch.slam import tracking
+    from sgslam_tpu_torch.utils import timing
+
+    orb_cfg = config.synthetic_config().orb
+    thr = orb_cfg.fast_min_threshold / 255.0
+
+    pyramids = [(label, image.build_pyramid(img, orb_cfg.n_levels,
+                                            orb_cfg.scale_factor))
+                for label, img in fast_images(dev)]
+    for label, levels in pyramids:
+        for cell in (8, 16, 32):
+            before = fc.fast_detect_kernel.launches
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = [orb.detect_cells(levels, cell, thr) for _ in range(2)]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            want = orb.detect_cells_reference(levels, cell, thr)
+            torch.cuda.synchronize()
+            same = all(a.dtype == b.dtype and torch.equal(
+                a.view(torch.int32) if a.dtype == torch.float32 else a,
+                b.view(torch.int32) if b.dtype == torch.float32 else b)
+                for run in got for a, b in zip(run, want))
+            kept = int((want[0] > 0).sum())
+            print(f"[parity] FAST kernel, {label}, cell {cell}: "
+                  f"{want[0].numel()} cells, {kept} with a corner: "
+                  f"{'every bit equal' if same else 'DIFFERS'}")
+            if fc.fast_detect_kernel.launches - before != 2 or not same:
+                raise AssertionError(f"FAST kernel {label} cell {cell}: not "
+                                     "one launch a call, or a bit differs "
+                                     "from the plain detection")
+
+    for w, h in ((640, 480), (752, 480)):
+        cfg = config.synthetic_config(w, h)
+        poses = syn.make_trajectory(8, dev)
+        grays = [syn.render_frame(cfg.camera, poses[i]) for i in range(8)]
+        m = timing.Metrics()
+        before = fc.fast_detect_kernel.launches
+        with timing.tracing(m):
+            for gray, depth in grays:
+                tracking.extract_frame(cfg, gray, depth, dev)
+        torch.cuda.synchronize()
+        launches = fc.fast_detect_kernel.launches - before
+        ops = timing.device_ops(
+            lambda: tracking.extract_frame(cfg, *grays[0], dev), reps=3)
+        print(f"[fast] tracking.extract_frame at {w}x{h}: {launches} FAST "
+              f"launches in 8 frames, fast.calls {m.counters['fast.calls']},"
+              f" fast.kernel {m.counters['fast.kernel']}; "
+              f"{sum(c for _, c, _ in ops):.0f} device operations a frame")
+        if not (launches == m.counters["fast.calls"]
+                == m.counters["fast.kernel"] == 8):
+            raise AssertionError(f"extract_frame at {w}x{h}: {launches} "
+                                 f"FAST launches, counts {dict(m.counters)}")
+
+    entry = None
+    for label, levels in pyramids[:2]:
+        cell = orb_cfg.cell_size
+        shapes = [tuple(t.shape) for t in levels]
+        call = lambda: orb.detect_cells(levels, cell, thr)
+        ms = timing.graph_ms(call, calls=20)
+        bound_ms = fc.fast_detect_bound(shapes, cell)
+        plain = lambda: orb.detect_cells_reference(levels, cell, thr)
+        plain_ops = timing.device_ops(plain, reps=3)
+        plain_dev_ms = sum(us for _, _, us in plain_ops) / 1e3
+        plain_ms = timing.event_ms(plain, runs=20)
+        print(f"[time] FAST kernel, {label} (8 levels, cell {cell}): "
+              f"kernel_ms={ms:.5f} (CUDA-graph replay), bound {bound_ms:.5f}"
+              f" ms ({100 * bound_ms / ms:.1f}% of it reached); the plain "
+              f"detection {sum(c for _, c, _ in plain_ops):.0f} device "
+              f"operations, {plain_dev_ms:.5f} ms of device time, "
+              f"{plain_ms:.5f} ms a call between events")
+        if entry is None:
+            entry = {"name": "fast_detect", "route": "cuda",
+                     "source": "sgslam_tpu_torch/csrc/fast_detect.cu",
+                     "replaces": "sgslam_tpu/ops/fast.py and orb.py's "
+                                 "_detect_level (XLA ops; no Pallas kernel)",
+                     "launches": 0, "max_abs_err": 0.0, "ms": ms,
+                     "plain_ms": plain_dev_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "library_ms": None}
+    return entry
+
+
 class SegmentInputs:
     """Stands in for `ops.segment.segment_kernel` for the whole run: every
     call goes to the kernel (which counts its launches). Per phase and call
@@ -825,8 +960,9 @@ def phase_segment(dev, rec: SegmentInputs, launches: int):
 
 
 def _zero_counts():
-    """Set K1's, K1s's, the segment sum's and the pose kernel's launch
-    counts to 0 before a path."""
+    """Set K1's, K1s's, the segment sum's, the pose kernel's and the FAST
+    kernel's launch counts to 0 before a path."""
+    from sgslam_tpu_torch.ops import fast_cuda as fc
     from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.ops import hamming_search as hs
     from sgslam_tpu_torch.ops import pose_opt_cuda as po
@@ -835,6 +971,7 @@ def _zero_counts():
     hc.hamming_kernel.launches = 0
     hs.hamming_search_kernel.launches = 0
     po.pose_opt_kernel.launches = 0
+    fc.fast_detect_kernel.launches = 0
     segment.segment_kernel.launches = 0
 
 
@@ -1401,6 +1538,7 @@ def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
     schedule, with the chunk stages and loop closing timed (CUDA events)
     and the kernels' counts set to 0 just before the timed region."""
     from sgslam_tpu_torch import bench
+    from sgslam_tpu_torch.ops import fast_cuda as fc
     from sgslam_tpu_torch.ops import hamming_cuda as hc
     from sgslam_tpu_torch.ops import pose_opt_cuda as po
     from sgslam_tpu_torch.ops import segment
@@ -1421,6 +1559,8 @@ def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
     kernels["hamming_matrix"]["launches"] = k1_launches
     pose_launches = po.pose_opt_kernel.launches
     kernels["pose_opt"]["launches"] = pose_launches
+    fast_launches = fc.fast_detect_kernel.launches
+    kernels["fast_detect"]["launches"] = fast_launches
     seg_launches = segment.segment_kernel.launches
     n = info["frames"]
 
@@ -1441,7 +1581,8 @@ def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
           f"{len(est)} frames, K1s launches {launches} "
           f"({launches / n:.2f}/frame), segment-sum launches {seg_launches} "
           f"({seg_launches / n:.2f}/frame), pose-kernel launches "
-          f"{pose_launches} ({pose_launches / n:.2f}/frame)")
+          f"{pose_launches} ({pose_launches / n:.2f}/frame), FAST-kernel "
+          f"launches {fast_launches} ({fast_launches / n:.2f}/frame)")
     print(f"[bench-path] frames/s (bench.py's metric: timed frames over the "
           f"wall time of the timed chunks and the final flush): {fps:.3f} "
           f"({info['seconds']:.3f} s for {n} frames) on "
@@ -1456,10 +1597,11 @@ def phase_bench_path(dev, kernels, cfg=None, warm=None, timed=None):
         raise AssertionError(f"bench path: inliers fell to {min_inl}")
     if not rmse < ATE_GATE_M:
         raise AssertionError(f"bench path: ATE {rmse:.4f} m")
-    if launches < 1 or seg_launches < 1 or pose_launches < 2 * n:
+    if launches < 1 or seg_launches < 1 or pose_launches < 2 * n \
+            or fast_launches < n:
         raise AssertionError("bench path: K1s or the segment sum never "
-                             "launched, or the pose kernel fewer than twice "
-                             "a frame")
+                             "launched, the pose kernel fewer than twice "
+                             "a frame, or the FAST kernel fewer than once")
     if k1_launches:
         raise AssertionError(f"bench path: K1 launched {k1_launches} times "
                              "(a search wrote its [Q, N] matrix)")
@@ -2625,7 +2767,8 @@ def main() -> int:
     max_err_s = phase_k1s_parity(dev, cases)
     kernels = {"hamming_matrix": phase_k1_time(dev, rng, max_err, shapes),
                "hamming_search": phase_k1s_time(dev, max_err_s),
-               "pose_opt": phase_pose_opt(dev)}
+               "pose_opt": phase_pose_opt(dev),
+               "fast_detect": phase_fast_detect(dev)}
 
     def run(phase, fn, *args):
         rec.phase = phase

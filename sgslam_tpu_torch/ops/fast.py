@@ -5,6 +5,10 @@ OpenCV's cornerScore semantics, then a strict 3x3 non-max suppression. The
 shifts are gathers with clamped indices, which give the reference's edge
 padding; every step is a subtraction, a min or a max, so the score map is
 exact given the same level image.
+
+These functions are the plain version and the CPU path of
+`orb.detect_cells`; on the card the detection of a whole pyramid is one
+launch of `csrc/fast_detect.cu`, equal to them to the bit.
 """
 
 from __future__ import annotations

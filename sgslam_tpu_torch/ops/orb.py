@@ -3,8 +3,10 @@
 Port of `sgslam_tpu/ops/orb.py`. Per pyramid level: dense FAST score, strict
 NMS, per-cell argmax and a per-level top-k of cells, then the
 intensity-centroid angle on the raw level and 256 rotated-BRIEF tests on the
-7x7-blurred level. The output is a fixed-capacity `Features` set with a
-validity mask, as in the reference.
+7x7-blurred level. On the card the detection up to the per-cell argmax is
+one kernel launch for all levels (`detect_cells`, `ops/fast_cuda.py`). The
+output is a fixed-capacity `Features` set with a validity mask, as in the
+reference.
 
 Two rules keep the selected keypoints identical to the reference's:
   * `lax.top_k` breaks ties toward the lower index; `torch.topk` promises no
@@ -24,8 +26,10 @@ import torch
 
 from ..config import OrbConfig
 from ..geometry.camera import Camera, undistort_points
+from ..utils import timing
 from . import fast as fast_mod
 from . import image as image_mod
+from .fast_cuda import cell_grid, fast_detect_kernel
 from .pattern import DESC_WORDS, PATCH_HALF, PATTERN, ROT_PATCH_HALF
 
 EDGE_MARGIN = ROT_PATCH_HALF  # = 19, the reference's EDGE_THRESHOLD
@@ -72,23 +76,51 @@ def level_budgets(cfg: OrbConfig):
     return tuple(int(b) for b in budgets)
 
 
-def _detect_level(img_l, budget: int, cell: int, threshold: float):
-    """One pyramid level -> (xy_l [budget,2] f32 level coords, score)."""
+def level_cells(img_l, cell: int, threshold: float):
+    """One level's cells, plain: (cell_score [ncy*ncx] f32, cell_best
+    [ncy*ncx] int64), the max of the level's NMS'd, border-masked FAST
+    score over each `cell` x `cell` cell (the level padded with zeros to
+    whole cells) and the row-major index in the cell of its first maximum.
+    """
     h, w = img_l.shape
-    dev = img_l.device
     score = fast_mod.fast_score_map(img_l, threshold)
     score = fast_mod.nms_3x3(score)
-    score = score * fast_mod.border_mask(h, w, EDGE_MARGIN, score.dtype, dev)
-
-    ncy = -(-h // cell)
-    ncx = -(-w // cell)
+    score = score * fast_mod.border_mask(h, w, EDGE_MARGIN, score.dtype,
+                                         img_l.device)
+    ncy, ncx = cell_grid(h, w, cell)
     sp = torch.nn.functional.pad(score, (0, ncx * cell - w, 0, ncy * cell - h))
     cells = sp.reshape(ncy, cell, ncx, cell).permute(0, 2, 1, 3)
     cells = cells.reshape(ncy * ncx, cell * cell)
-    cell_best = torch.argmax(cells, dim=1)
-    cell_score = torch.amax(cells, dim=1)
+    return torch.amax(cells, dim=1), torch.argmax(cells, dim=1)
 
-    k = min(budget, ncy * ncx)
+
+def detect_cells(levels, cell: int, threshold: float):
+    """Every level's cells (`level_cells`), concatenated in level order.
+
+    CPU tensors take the plain version (`detect_cells_reference`); CUDA
+    tensors launch `csrc/fast_detect.cu` once for the whole pyramid, or
+    raise. The tracer counts `fast.calls` and, of those, `fast.kernel`."""
+    tr = timing.active()
+    tr.count("fast.calls")
+    if levels[0].device.type == "cpu":
+        return detect_cells_reference(levels, cell, threshold)
+    out = fast_detect_kernel(levels, cell, threshold, EDGE_MARGIN)
+    tr.count("fast.kernel")
+    return out
+
+
+def detect_cells_reference(levels, cell: int, threshold: float):
+    """The plain body of `detect_cells`, `level_cells` level by level, as
+    torch ops on any device (on a card, about 236 launches a level)."""
+    per = [level_cells(img_l, cell, threshold) for img_l in levels]
+    return torch.cat([s for s, _ in per]), torch.cat([b for _, b in per])
+
+
+def _select_level(cell_score, cell_best, ncx: int, budget: int, cell: int):
+    """One level's cells -> (xy_l [budget,2] f32 level coords, score): the
+    `budget` best cells, ties toward the lower cell, padded with zeros."""
+    dev = cell_score.device
+    k = min(budget, cell_score.shape[0])
     top_score, top_cell = topk_stable(cell_score, k)
     by = top_cell // ncx
     bx = top_cell % ncx
@@ -158,15 +190,22 @@ def _descriptors(patches, angles):
 def extract(img, cfg: OrbConfig, cam: Camera) -> Features:
     """Full ORB extraction on one grayscale image [H, W] float32, on the
     image's device."""
-    img = img.to(torch.float32)
+    img = img.to(torch.float32).contiguous()
     dev = img.device
     levels = image_mod.build_pyramid(img, cfg.n_levels, cfg.scale_factor)
     budgets = level_budgets(cfg)
+    cell = cfg.cell_size
+    cell_score, cell_best = detect_cells(levels, cell,
+                                         cfg.fast_min_threshold / 255.0)
 
     xs, ss, lv_ids, angs, descs = [], [], [], [], []
+    first = 0
     for lv, (img_l, budget) in enumerate(zip(levels, budgets)):
-        xy_l, score = _detect_level(img_l, budget, cfg.cell_size,
-                                    cfg.fast_min_threshold / 255.0)
+        ncy, ncx = cell_grid(*img_l.shape, cell)
+        cells = slice(first, first + ncy * ncx)
+        first = cells.stop
+        xy_l, score = _select_level(cell_score[cells], cell_best[cells], ncx,
+                                    budget, cell)
         centers = torch.round(xy_l).to(torch.int64)
         # orientation on the raw level image
         ang = _ic_angle(image_mod.gather_patches(img_l, centers, PATCH_HALF))

@@ -26,17 +26,17 @@ stages:
     read once per drain (every `fetch_every` chunks).
 
 Host waits per chunk of 4, as measured: the synchronising CUDA runtime
-calls inside the tracer's spans (`benchmark/spans.py`), 25.2-25.8 a frame
+calls inside the tracer's spans (`benchmark/spans.py`), 17.6 a frame
 on the benchmark's `chunked.slow_walker` cell at 640x480 on an H100,
 with the source lines from torch's sync debug mode. In order:
   1. `runner.chunk` (3.2): the upload of the chunk's grays and depths from
      pageable host memory (`tracking._as_tensor`), and after the scans the
      stats row of the packed result (`torch.tensor([...])` into a device
      tensor) and, with a keyframe, its `is_kf` write;
-  2. `front_end.extract` (64, two thirds of all): two constants copied to
-     the device per pyramid level of every frame, the FAST threshold
-     (`ops/fast.py`, `fast_score_map`) and the rBRIEF pattern
-     (`ops/orb.py`, `_descriptors`);
+  2. `front_end.extract` (32, about half of all): the rBRIEF pattern
+     copied to the device per pyramid level of every frame (`ops/orb.py`,
+     `_descriptors`); the detection (`orb.detect_cells`, one kernel for
+     the pyramid) copies nothing;
   3. `semantic.detector` (1): the box scale (`models/detector.py`);
   4. `semantic.cull` (24): per frame the two constants of
      `geometry/epipolar.py` (`_smallest_eigvec3`, `eight_point`) and four

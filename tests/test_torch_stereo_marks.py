@@ -235,7 +235,7 @@ def test_off_run_without_hooks_opens_nothing(plain, pairs):
     feats, made = _counting(call)
     assert made == {"range": 0, "event": 0}
     assert m.spans == [] and m.on_stage is None
-    assert dict(m.counters) == {"stereo.calls": 1,
+    assert dict(m.counters) == {"fast.calls": 1, "stereo.calls": 1,
                                 "stereo.candidates": _candidates(1)}
     assert int((feats.u_right >= 0).sum()) > 0
 

@@ -63,7 +63,7 @@ def main() -> int:
         args = [dev]
         if "kernels" in inspect.signature(fn).parameters:
             args.append({"hamming_matrix": {}, "hamming_search": {},
-                         "pose_opt": {}})
+                         "pose_opt": {}, "fast_detect": {}})
         if a.segments:
             rec.phase = name
         t0 = time.perf_counter()
