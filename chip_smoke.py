@@ -303,20 +303,15 @@ def phase_build():
     from sgslam_tpu_torch.ops import segment
 
     t0 = time.perf_counter()
-    sources = [(hc.CSRC / "hamming.cu", ()),
-               (hc.CSRC / "hamming_search.cu", ()),
-               (hc.CSRC / "segment_sum.cu", ()),
-               (hc.CSRC / "pose_opt.cu", po.FLAGS),
-               (hc.CSRC / "fast_detect.cu", ())]
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(lambda s: hc.build_library(True, *s), sources))
-    hc.hamming_kernel.load()
-    hs.hamming_search_kernel.load()
-    segment.segment_kernel.load()
-    po.pose_opt_kernel.load()
-    fc.fast_detect_kernel.load()
-    print(f"[build] {', '.join(s.name for s, _ in sources)} built and loaded "
-          f"in {time.perf_counter() - t0:.2f} s")
+    kernels = [hc.hamming_kernel, hs.hamming_search_kernel,
+               segment.segment_kernel, po.pose_opt_kernel,
+               fc.fast_detect_kernel]
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda k: k.build(verbose=True), kernels))
+    for k in kernels:
+        k.load()
+    print(f"[build] {', '.join(k.source.name for k in kernels)} built and "
+          f"loaded in {time.perf_counter() - t0:.2f} s")
 
 
 def _descs(rng, dev, n):

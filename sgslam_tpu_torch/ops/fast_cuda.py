@@ -6,27 +6,23 @@ reduction, level by level) on CPU tensors and `fast_detect_kernel` on
 CUDA tensors: `csrc/fast_detect.cu`, one launch that gives every level's
 per-cell best score and its first index, the plain version's to the bit.
 There is no fallback from one to the other: a build or launch failure
-raises. `fast_detect_kernel.launches` counts kernel launches.
+raises. `fast_detect_kernel.launches` counts kernel launches, and
+`ops/cuda_lib.py` builds, loads and launches the kernel.
 
-The kernel is built like K1 (`ops/hamming_cuda.build_library`: nvcc for
-sm_90a into `build/` at first use, a plain C entry point bound with
-ctypes). The level pointers and shapes and the threshold are kernel
-arguments: a call copies nothing to the device, allocates only its two
-outputs, launches on the current stream and does not synchronise.
+The level pointers and shapes and the threshold are kernel arguments: a
+call copies nothing to the device, allocates only its two outputs,
+launches on the current stream and does not synchronise.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
 
 import torch
 
 from ..utils.timing import PEAKS
-from .hamming_cuda import CSRC, build_library
+from .cuda_lib import CSRC, CudaKernel
 
-_SOURCE = CSRC / "fast_detect.cu"
 MIN_CELL, MAX_CELL = 8, 32        # the kernel's tile holds a 32-pixel cell
 MAX_LEVELS = 16
 
@@ -46,25 +42,14 @@ def fast_detect_bound(shapes, cell: int) -> float:
     return nbytes / PEAKS["hbm_bytes_per_s"] * 1e3
 
 
-class FastDetectKernel:
-    """ctypes binding of the kernel, loaded at first launch, with a count
-    of launches."""
+class FastDetectKernel(CudaKernel):
+    """F's binding."""
 
-    def __init__(self):
-        self.launches = 0
-        self._fn = None
-        self._lock = threading.Lock()
-
-    def load(self, verbose: bool = False):
-        with self._lock:
-            if self._fn is None:
-                lib = ctypes.CDLL(str(build_library(verbose, _SOURCE)))
-                fn = lib.sgslam_fast_detect
-                fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                               + [ctypes.c_float] + [ctypes.c_void_p] * 3)
-                fn.restype = ctypes.c_int
-                self._fn = fn
-        return self._fn
+    name = "FAST detection"
+    source = CSRC / "fast_detect.cu"
+    entries = {"sgslam_fast_detect": [ctypes.c_void_p] * 3
+               + [ctypes.c_int] * 3 + [ctypes.c_float]
+               + [ctypes.c_void_p] * 2}
 
     def __call__(self, levels, cell: int, threshold: float, margin: int):
         """(cell_score [C] f32, cell_best [C] int64): every level's cells
@@ -98,20 +83,11 @@ class FastDetectKernel:
                                        for t in levels))
         cell_score = torch.empty(total, dtype=torch.float32, device=dev)
         cell_best = torch.empty(total, dtype=torch.int64, device=dev)
-        fn = self.load()
         imgs = (ctypes.c_void_p * n)(*(t.data_ptr() for t in levels))
         hs = (ctypes.c_int * n)(*(t.shape[0] for t in levels))
         ws = (ctypes.c_int * n)(*(t.shape[1] for t in levels))
-        with contextlib.ExitStack() as guard:
-            if torch.cuda.current_device() != dev.index:
-                guard.enter_context(torch.cuda.device(dev.index))
-            err = fn(imgs, hs, ws, n, cell, margin, threshold,
-                     cell_score.data_ptr(), cell_best.data_ptr(),
-                     torch.cuda.current_stream(dev.index).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"FAST detection launch failed: CUDA error "
-                               f"{err}")
-        self.launches += 1
+        self.launch("sgslam_fast_detect", dev, imgs, hs, ws, n, cell, margin,
+                    threshold, cell_score.data_ptr(), cell_best.data_ptr())
         return cell_score, cell_best
 
 

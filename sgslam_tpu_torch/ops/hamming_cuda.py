@@ -1,10 +1,8 @@
 """K1: the 256-bit Hamming distance matrix — CUDA kernel and plain version.
 
 The CUDA kernel (`csrc/hamming.cu`) replaces the TPU's Pallas kernel
-`sgslam_tpu/ops/pallas_hamming.py::_hamming_kernel`. It is compiled with
-`nvcc` for sm_90a into a shared library with a plain C entry point, at first
-use, from the package's own sources into `build/` at the repository root,
-and bound with ctypes.
+`sgslam_tpu/ops/pallas_hamming.py::_hamming_kernel`; `ops/cuda_lib.py`
+builds, loads, launches and counts it.
 
 `hamming_matrix(a, b)` takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. There is no fallback from
@@ -16,24 +14,13 @@ fused search (`ops/hamming_search.py`), whose plain version calls it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
 
 from ..utils.timing import PEAKS
+from .cuda_lib import CSRC, CudaKernel
 
 WORDS = 8
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCE = CSRC / "hamming.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 
 def _popcount32(x):
@@ -79,62 +66,13 @@ def hamming_bound(n: int, m: int) -> tuple:
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
 
-def build_library(verbose: bool = False, source: Path = _SOURCE,
-                  flags: tuple = ()) -> Path:
-    """Compile a CUDA source of csrc/ (by default hamming.cu), if not
-    already built, into a shared library and return its path; `flags` are
-    added to NVCC_FLAGS. The file name carries a hash of the source and the
-    flags, so an edit rebuilds."""
-    src = source.read_bytes()
-    flags = (*NVCC_FLAGS, *flags)
-    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
-    lib = _BUILD_DIR / f"libsgslam_{source.stem}_{tag}.so"
-    if lib.exists():
-        return lib
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           f"build {source.name}")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *flags]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        res = subprocess.run(cmd + ["-o", tmp, str(source)],
-                             capture_output=True, text=True, check=False)
-        if verbose or res.returncode != 0:
-            print(res.stdout + res.stderr, end="")
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}) on {source}")
-        os.replace(tmp, lib)      # atomic: concurrent builds never see half
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+class HammingKernel(CudaKernel):
+    """K1's binding."""
 
-
-class HammingKernel:
-    """ctypes binding of the CUDA kernel, loaded at first launch, with a
-    count of launches."""
-
-    def __init__(self):
-        self.launches = 0
-        self._fn = None
-        self._lock = threading.Lock()
-
-    def load(self, verbose: bool = False):
-        with self._lock:
-            if self._fn is None:
-                lib = ctypes.CDLL(str(build_library(verbose)))
-                fn = lib.sgslam_hamming_matrix
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-                self._fn = fn
-        return self._fn
+    name = "Hamming kernel"
+    source = CSRC / "hamming.cu"
+    entries = {"sgslam_hamming_matrix": [ctypes.c_void_p] * 3
+               + [ctypes.c_int] * 2}
 
     def __call__(self, a, b):
         for name, t in (("a", a), ("b", b)):
@@ -157,14 +95,8 @@ class HammingKernel:
         out = torch.empty((n, m), dtype=torch.int32, device=a.device)
         if n == 0 or m == 0:
             return out
-        fn = self.load()
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, m, stream)
-        if err != 0:
-            raise RuntimeError(f"Hamming kernel launch failed: CUDA error "
-                               f"{err}")
-        self.launches += 1
+        self.launch("sgslam_hamming_matrix", a.device, a.data_ptr(),
+                    b.data_ptr(), out.data_ptr(), n, m)
         return out
 
 

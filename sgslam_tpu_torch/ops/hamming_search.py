@@ -10,28 +10,25 @@ CPU tensor it runs the plain version, `hamming_search_reference`: the
 search's torch chain as the port ran it before the kernel existed (K1's
 distance matrix, then `where`, `argmin`, `amin` and `_second_min`). There
 is no fallback from one to the other: a build or launch failure raises.
-`hamming_search_kernel.launches` counts kernel launches.
+`hamming_search_kernel.launches` counts kernel launches, and
+`ops/cuda_lib.py` builds, loads and launches the kernel.
 
-The kernel is built like K1 (`ops/hamming_cuda.build_library`: nvcc for
-sm_90a into `build/` at first use, a plain C entry point bound with
-ctypes). It replaces the reductions around the TPU kernel
+It replaces the reductions around the TPU kernel
 `sgslam_tpu/ops/pallas_hamming.py::_hamming_kernel`; K1 stays that
 kernel's counterpart and is no longer on the path.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
 from typing import NamedTuple
 
 import torch
 
 from ..utils.timing import PEAKS
-from .hamming_cuda import CSRC, WORDS, build_library, hamming_matrix
+from .cuda_lib import CSRC, CudaKernel
+from .hamming_cuda import WORDS, hamming_matrix
 
-_SOURCE = CSRC / "hamming_search.cu"
 MAX_DIST = 256
 MAX_COLS = 65535        # the kernel keys a column in 16 bits
 WAVES = 2               # blocks per SM the grid reaches, where it can
@@ -138,34 +135,28 @@ def _ready(t, name, dtype, shape, index):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-class HammingSearchKernel:
-    """ctypes binding of the kernel, loaded at first launch, with a count
-    of launches."""
+class HammingSearchKernel(CudaKernel):
+    """K1s's binding, with each card's workspace and SM count."""
+
+    name = "Hamming search"
+    source = CSRC / "hamming_search.cu"
+    entries = {"sgslam_hamming_search": [ctypes.c_void_p] * 9
+               + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7}
 
     def __init__(self):
-        self.launches = 0
-        self._fn = None
+        super().__init__()
         self._tile = None
         self._sms = {}
         self._ws = {}
-        self._lock = threading.Lock()
 
-    def load(self, verbose: bool = False):
-        with self._lock:
-            if self._fn is None:
-                lib = ctypes.CDLL(str(build_library(verbose, _SOURCE)))
-                fn = lib.sgslam_hamming_search
-                fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                               + [ctypes.c_void_p] * 8)
-                fn.restype = ctypes.c_int
-                for f in (lib.sgslam_hamming_search_rows,
-                          lib.sgslam_hamming_search_cols):
-                    f.argtypes = []
-                    f.restype = ctypes.c_int
-                self._tile = (lib.sgslam_hamming_search_rows(),
-                              lib.sgslam_hamming_search_cols())
-                self._fn = fn
-        return self._fn
+    def check(self, lib):
+        """Reads the kernel's tile, (rows, columns)."""
+        for f in (lib.sgslam_hamming_search_rows,
+                  lib.sgslam_hamming_search_cols):
+            f.argtypes = []
+            f.restype = ctypes.c_int
+        self._tile = (lib.sgslam_hamming_search_rows(),
+                      lib.sgslam_hamming_search_cols())
 
     def _workspace(self, device, words: int):
         """The device's zeroed int64 workspace of at least `words`: the
@@ -227,7 +218,7 @@ class HammingSearchKernel:
             if mutual:
                 raise ValueError("a mutual search needs at least one row")
             return best_idx, best, second, rbest
-        fn = self.load()
+        self.load()
         rows = self._tile[0]
         if -(-q // rows) > 65535:     # grid.y counts row tiles
             raise ValueError(f"{q} rows exceed the kernel's grid")
@@ -241,20 +232,12 @@ class HammingSearchKernel:
                                      ).data_ptr()
             counters = colbuf + 8 * n_col
         ptr = [None if t is None else t.data_ptr() for t in args]
-        with contextlib.ExitStack() as guard:
-            if torch.cuda.current_device() != i:
-                guard.enter_context(torch.cuda.device(i))
-            err = fn(*ptr, level_window, q, n, splits, int(mutual),
-                     best_idx.data_ptr(),
-                     best.data_ptr(), second.data_ptr(),
-                     None if rbest is None else rbest.data_ptr(),
-                     None if partials is None else partials.data_ptr(),
-                     colbuf, counters,
-                     torch.cuda.current_stream(i).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"Hamming search launch failed: CUDA error "
-                               f"{err}")
-        self.launches += 1
+        self.launch("sgslam_hamming_search", dev, *ptr, level_window, q, n,
+                    splits, int(mutual), best_idx.data_ptr(),
+                    best.data_ptr(), second.data_ptr(),
+                    None if rbest is None else rbest.data_ptr(),
+                    None if partials is None else partials.data_ptr(),
+                    colbuf, counters)
         return best_idx, best, second, rbest
 
 

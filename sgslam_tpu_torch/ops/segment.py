@@ -20,20 +20,19 @@ samples, dense voxels, a camera's observations) as `BLOCK` strided
 partial sums from zero, halved in a fixed tree and then added to `init`,
 so that the card sums it in parallel. A wrapper takes the plain version
 only for a tensor on the CPU, and for a CUDA tensor launches the kernel or
-raises. `segment_kernel.launches` counts kernel launches.
+raises. `segment_kernel.launches` counts kernel launches, and
+`ops/cuda_lib.py` builds, loads and launches the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from ..utils.timing import PEAKS
-from .hamming_cuda import CSRC, build_library
+from .cuda_lib import CSRC, CudaKernel
 
-_SOURCE = CSRC / "segment_sum.cu"
 _FLOATS = {torch.float32: "f32", torch.float64: "f64"}
 LONG = 256      # a longer segment is summed by a block (the kernel's kLong)
 BLOCK = 256     # the partial sums of such a segment (the kernel's kBlock)
@@ -121,41 +120,36 @@ def segment_bound(values, index, n: int, init) -> tuple:
     ops_ms = kept * cols / PEAKS["fp32_flops"] * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
-class SegmentSumKernel:
-    """ctypes binding of `csrc/segment_sum.cu`, loaded at first launch,
-    with a count of launches."""
+
+class SegmentSumKernel(CudaKernel):
+    """S's binding: one entry point per float type, and the entry point
+    that sizes a call's scratch."""
+
+    name = "segment-sum kernel"
+    source = CSRC / "segment_sum.cu"
+    entries = {f"sgslam_segment_sum_{tag}": [ctypes.c_int]
+               + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+               + [ctypes.c_void_p] * 2
+               + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                  ctypes.c_int, ctypes.c_void_p, ctypes.c_int64]
+               for tag in _FLOATS.values()}
 
     def __init__(self):
-        self.launches = 0
+        super().__init__()
         self._scratch = None
-        self._fns = None
-        self._lock = threading.Lock()
 
-    def load(self, verbose: bool = False):
-        with self._lock:
-            if self._fns is None:
-                lib = ctypes.CDLL(str(build_library(verbose, _SOURCE)))
-                if (lib.sgslam_segment_sum_long(),
-                        lib.sgslam_segment_sum_block()) != (LONG, BLOCK):
-                    raise RuntimeError(f"{_SOURCE.name} sums segments in "
-                                       "another order than its plain version")
-                scratch = lib.sgslam_segment_sum_scratch
-                scratch.argtypes = [ctypes.c_int64, ctypes.c_int64,
-                                    ctypes.c_int, ctypes.c_int64,
-                                    ctypes.c_int]
-                scratch.restype = ctypes.c_int64
-                fns = {}
-                for dt, tag in _FLOATS.items():
-                    fn = getattr(lib, f"sgslam_segment_sum_{tag}")
-                    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
-                        ctypes.c_int] + [ctypes.c_void_p] * 2 + [
-                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-                        ctypes.c_void_p]
-                    fn.restype = ctypes.c_int
-                    fns[dt] = fn
-                self._scratch, self._fns = scratch, fns
-        return self._fns
+    def check(self, lib):
+        """Refuses a library that sums in another order than the plain
+        version, and binds the scratch-size entry point."""
+        if (lib.sgslam_segment_sum_long(),
+                lib.sgslam_segment_sum_block()) != (LONG, BLOCK):
+            raise RuntimeError(f"{self.source.name} sums segments in "
+                               "another order than its plain version")
+        scratch = lib.sgslam_segment_sum_scratch
+        scratch.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                            ctypes.c_int64, ctypes.c_int]
+        scratch.restype = ctypes.c_int64
+        self._scratch = scratch
 
     def __call__(self, values, index, n: int, init=None):
         if not (values.is_cuda and index.is_cuda):
@@ -177,8 +171,7 @@ class SegmentSumKernel:
             index = index.to(torch.int64)
         idx = index.contiguous()
         start = None if init is None else init.contiguous()
-        fn = self.load()[values.dtype]
-        dev = values.device.index
+        self.load()
         bits = key_bits(n)
         nbytes = self._scratch(rows, cols, vals.element_size(), n, bits)
         if nbytes < 0:
@@ -187,16 +180,12 @@ class SegmentSumKernel:
                              f"2^31 rows, not {rows} x {cols} onto {n}")
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=values.device)
         out = torch.empty(shape, dtype=values.dtype, device=values.device)
-        with torch.cuda.device(values.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(dev, vals.data_ptr(), idx.data_ptr(), idx.element_size(),
-                     None if start is None else start.data_ptr(),
-                     out.data_ptr(), rows, cols, n, bits, scratch.data_ptr(),
-                     nbytes, stream)
-        if err != 0:
-            raise RuntimeError(f"segment-sum kernel launch failed: CUDA "
-                               f"error {err}")
-        self.launches += 1
+        self.launch(f"sgslam_segment_sum_{_FLOATS[values.dtype]}",
+                    values.device, values.device.index, vals.data_ptr(),
+                    idx.data_ptr(), idx.element_size(),
+                    None if start is None else start.data_ptr(),
+                    out.data_ptr(), rows, cols, n, bits, scratch.data_ptr(),
+                    nbytes)
         return out
 
 

@@ -17,6 +17,7 @@ from sgslam_tpu.config import MatcherConfig as JMatcher
 from sgslam_tpu.matching import search as jsearch
 from sgslam_tpu_torch.config import MatcherConfig as TMatcher
 from sgslam_tpu_torch.matching import search as tsearch
+from sgslam_tpu_torch.ops import cuda_lib
 from sgslam_tpu_torch.ops import hamming_search as hs
 from sgslam_tpu_torch.ops.search_cases import search_case
 
@@ -165,7 +166,7 @@ def test_unbuildable_kernel_raises(monkeypatch):
     def no_plain(*a, **k):
         raise AssertionError("took the plain version")
 
-    monkeypatch.setattr(hs, "build_library", no_nvcc)
+    monkeypatch.setattr(cuda_lib, "build_library", no_nvcc)
     monkeypatch.setattr(hs, "hamming_search_reference", no_plain)
     monkeypatch.setattr(hs, "_card_index", lambda t: 0)
     monkeypatch.setattr(hs, "_ready", lambda t, *a: t)
@@ -175,7 +176,7 @@ def test_unbuildable_kernel_raises(monkeypatch):
     v = torch.ones(40, dtype=torch.bool, device="meta")
     with pytest.raises(RuntimeError, match="nvcc"):
         hs.hamming_search(d, v, d, v, mutual=True)
-    assert kernel.launches == 0 and kernel._fn is None
+    assert kernel.launches == 0 and kernel.fns is None
 
 
 def test_search_bound_is_the_hand_count():

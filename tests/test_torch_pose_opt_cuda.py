@@ -3,8 +3,9 @@ the card, over seeded inputs (`ops/pose_cases.py`): stereo, mono, mixed
 and all-invalid rows, N of 4096, 37 and 1, and the callers' rounds,
 iterations and guard. No JAX here: the CPU comparison with the reference
 is `test_torch_pose_opt.py`. The tests without the `cuda` mark check the
-dispatch on the CPU: a CPU call never reaches the kernel, a tensor off the
-CPU never takes the plain body, and a build failure raises.
+dispatch on the CPU: a CPU call never reaches the kernel, and a tensor off
+the CPU never takes the plain body (a build failure:
+`test_torch_cuda_lib.py`).
 
 On a machine with a card:
     python -m pytest --noconftest tests/test_torch_pose_opt_cuda.py
@@ -148,13 +149,3 @@ def test_tensors_off_the_cpu_never_take_the_plain_body(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         pose_opt.pose_optimization(pose_cases.camera(), *args)
 
-
-def test_unbuildable_kernel_raises(monkeypatch):
-    def no_nvcc(*a, **k):
-        raise RuntimeError("nvcc not found")
-
-    monkeypatch.setattr(pose_opt_cuda, "build_library", no_nvcc)
-    kernel = pose_opt_cuda.PoseOptKernel()
-    with pytest.raises(RuntimeError, match="nvcc"):
-        kernel.load()
-    assert kernel.launches == 0 and kernel._fn is None
